@@ -1,0 +1,93 @@
+"""GNN edge op: ``out[b,i,j,:] = |x[b,i,:] - x[b,j,:]| @ w.T + bias``.
+
+Port of the TPU kernel ``mft_tpu/ops/pallas/edge_mlp.py:edge_abs_diff_matmul``
+as a hand-written CUDA kernel (``csrc/edge_mlp.cu``, which documents its
+design and bound).  ``w`` is in torch layout ``[C, F]``.
+
+* On a CUDA tensor, :func:`edge_abs_diff_matmul` launches the kernel or
+  raises; it never falls back.  Its gradient is a ``torch.autograd.Function``
+  whose backward is the plain-torch form of the JAX custom VJP
+  (``_edge_bwd``, itself plain XLA on the TPU).
+* On a CPU tensor it computes :func:`edge_abs_diff_matmul_reference`, the
+  plain version the tests hold against JAX and ``chip_smoke.py`` holds the
+  kernel against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: launches of the CUDA kernel in this process (read by chip_smoke.py)
+LAUNCHES = 0
+
+
+def edge_abs_diff_matmul_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: the ``[B, N, N, F]`` edge tensor, then a matmul."""
+    e = (x[:, :, None, :] - x[:, None, :, :]).abs()
+    return torch.matmul(e, w.t()) + b
+
+
+def _edge_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """``(dx, dw, db)`` of the op at cotangent ``g [B, N, N, C]``
+    (edge_mlp.py:94-103): with ``d = x_i - x_j``,
+    ``dx = sum_j sign(d)*gW - sum_i sign(d)*gW``, ``dw = g^T |d|``,
+    ``db = sum g``."""
+    d = x[:, :, None, :] - x[:, None, :, :]
+    sgw = torch.sign(d) * torch.matmul(g, w)
+    dx = sgw.sum(dim=2) - sgw.sum(dim=1)
+    dw = torch.einsum("bijc,bijf->cf", g, d.abs())
+    return dx, dw, g.sum(dim=(0, 1, 2))
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
+    from mft_tpu_torch.kernels.build import load
+
+    if x.dim() != 3 or w.dim() != 2 or b.dim() != 1:
+        raise ValueError(f"expected x [B,N,F], w [C,F], b [C]; got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
+    bsz, n, f = x.shape
+    c = w.shape[0]
+    if w.shape[1] != f or b.shape[0] != c:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
+    if bsz > 65535:  # one grid row (blockIdx.z) per graph
+        raise ValueError(f"at most 65535 graphs per call, got {bsz}")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty((bsz, n, n, c), device=x.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    fn = load("edge_mlp").edge_abs_diff_matmul_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    LAUNCHES += 1
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, n, f, c, stream)
+    if err != 0:
+        raise RuntimeError(f"edge_abs_diff_matmul_f32 launch failed: cudaError {err}")
+    return out
+
+
+class _EdgeAbsDiffMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return _launch(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _edge_bwd(x, w, g)
+
+
+def edge_abs_diff_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x ``[B, N, F]`` f32, w ``[C, F]``, b ``[C]`` -> ``[B, N, N, C]`` f32."""
+    if x.device.type == "cpu":
+        return edge_abs_diff_matmul_reference(x, w, b)
+    return _EdgeAbsDiffMatmul.apply(x.contiguous(), w.contiguous(), b.contiguous())

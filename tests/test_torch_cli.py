@@ -1,0 +1,96 @@
+"""The port's eval driver (mft_tpu_torch/cli/finetune.py) end to end on the
+CPU, loading checkpoints that the JAX package wrote (JAX init -> ``.ckpt``
+-> ``mft_tpu.cli.export_ckpt`` -> reference ``.tar``), and the port's
+isolation from JAX.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def save_dir(tmp_path_factory):
+    from mft_tpu import config as jcfg
+    from mft_tpu.cli import export_ckpt
+    from mft_tpu.methods import gnnnet as jgn
+    from mft_tpu.models import backbone as jbb
+    from mft_tpu.utils.checkpoint import save_checkpoint
+
+    root = tmp_path_factory.mktemp("mft_save")
+    paths = jcfg.Paths(save_dir=str(root))
+    init = jax.jit(lambda k: jbb.init_backbone(k, jbb.resnet10()))
+    for method, epoch, kw, seed in (("baseline", 400, dict(train_aug=False), 0),
+                                    ("gnnnet", 600, dict(train_aug=True, n_way=5, n_shot=5), 1)):
+        p, s = init(jax.random.PRNGKey(seed))
+        params = {"feature": p}
+        if method == "gnnnet":
+            params.update(jgn.init_head(jax.random.PRNGKey(7), jgn.GnnNetCfg()))
+        d = jcfg.checkpoint_dir(paths, "miniImageNet", "ResNet10", method, **kw)
+        src = save_checkpoint(os.path.join(str(root), "jax", method), epoch,
+                              {"epoch": epoch, "params": params, "stats": s})
+        os.makedirs(d)
+        assert export_ckpt.main([src, "--model", "ResNet10", "--out", os.path.join(d, f"{epoch}.tar")]) == 0
+    return str(root)
+
+
+def test_finetune_method_all_on_cpu(save_dir, capsys):
+    from mft_tpu_torch.cli import finetune
+
+    pj = os.path.join(save_dir, "paths.json")
+    with open(pj, "w") as f:
+        f.write('{"save_dir": "%s"}' % save_dir)
+    res = finetune.main(["--device", "cpu", "--method", "all", "--use_pallas", "--test_dataset", "synthetic",
+                         "--image_size", "32", "--n_shot", "5", "--n_query", "3", "--gen_examples", "1",
+                         "--fine_tune_epoch", "1", "--iter_num", "2", "--paths_json", pj])
+    out = capsys.readouterr().out
+    assert "2 Test Acc = " in out
+    assert len(res.accs) == 2 and all(np.isfinite(res.accs)) and all(0.0 <= a <= 100.0 for a in res.accs)
+    # the synthetic classes are tinted: even random weights separate them
+    assert res.mean > 100.0 / 5
+
+
+def test_entry_point_needs_a_card_unless_cpu_is_asked():
+    import torch
+
+    from mft_tpu_torch import resolve_device
+    from mft_tpu_torch.cli import finetune
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            finetune.main(["--method", "all", "--test_dataset", "synthetic"])
+    with pytest.raises(NotImplementedError, match="--method protonet"):
+        finetune.main(["--device", "cpu", "--method", "protonet", "--test_dataset", "synthetic"])
+    # flags of the JAX driver that the port does not implement are not defined
+    with pytest.raises(SystemExit):
+        finetune.main(["--device", "cpu", "--method", "all", "--test_dataset", "synthetic", "--bn_mode", "minibatch"])
+
+
+def test_port_imports_neither_jax_nor_mft_tpu():
+    """Every module of mft_tpu_torch, and chip_smoke.py with the modules its
+    phases import, in a fresh interpreter: no jax, no mft_tpu."""
+    code = """
+import importlib, pkgutil, sys
+import mft_tpu_torch
+for m in pkgutil.walk_packages(mft_tpu_torch.__path__, "mft_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+import torch.profiler
+bad = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", "jaxlib", "flax", "optax"))
+             or k == "mft_tpu" or k.startswith("mft_tpu."))
+print("BAD", bad)
+print("N", sum(k.startswith("mft_tpu_torch") for k in sys.modules))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert int(out.stdout.split("N ")[1].split()[0]) >= 20
