@@ -11,20 +11,28 @@ non-zero:
    (one nvcc per source, started together) and print the build seconds and
    the ptxas resource report;
 3. hold every kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (random f32 inputs from a seeded
-   generator), with the stated tolerance, and time both with CUDA events;
+   shapes the main path gives it (random inputs from a seeded generator),
+   with the stated tolerance, and time both with CUDA events: the GNN edge
+   kernel, and the fused inner scan (one step's gradients, the update rule
+   step by step on both lanes of a two-lane call, a 20-step scan with f32
+   and bf16 carry on one and two lanes with planted faults beside it to
+   show what its bound catches, the full 500-step scan);
 4. check the eval on the card against the same eval on the CPU at a small
-   size (strict f32, few inner steps);
+   size (strict f32 with the eager inner loop; then the fused scan on the
+   card against its plain version on the CPU), few inner steps;
 5. drive the main path through ``mft_tpu_torch.cli.finetune.main`` at full
-   width — ``--method all --use_pallas``, ResNet10 at 224 px, 5-way 5-shot,
-   15 queries, ``gen_examples=17``, ``fine_tune_epoch=5`` — on the
-   synthetic dataset with seeded random checkpoints (baseline@400 and
-   gnnnet_aug@600 ``.tar`` files), with every kernel launch count set to 0
-   just before and read just after; then two episodes of the strict f32
-   numerics (``--dtype float32 --inner_param_dtype float32``); then one
-   more episode of the main path under
-   ``torch.profiler`` to see the kernel's symbol on the device timeline and
-   to print where the time goes (per eval phase, per kernel, idle share).
+   width — ``--method all --use_pallas --inner_scan fused``, ResNet10 at
+   224 px, 5-way 5-shot, 15 queries, ``gen_examples=17``,
+   ``fine_tune_epoch=5`` — on the synthetic dataset with seeded random
+   checkpoints (baseline@400 and gnnnet_aug@600 ``.tar`` files), with every
+   kernel launch count set to 0 just before and read just after; then two
+   episodes with the eager inner loop (``--inner_scan eager``), so that the
+   seconds per episode of both stand side by side from one host; then two
+   episodes of the strict f32 numerics (``--dtype float32
+   --inner_param_dtype float32``); then one more episode of the main path
+   under ``torch.profiler`` to see both kernels' symbols on the device
+   timeline and to print where the time goes (per eval phase, per kernel,
+   idle share).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 the main path, max error, kernel / plain / bound times); the last line is
@@ -48,8 +56,55 @@ EDGE_REL_TOL = 1e-4
 #: card vs CPU eval scores (softmax sums in [0, 2]), strict f32, no inner
 #: steps: the same forward (trunk, BN, GNN with the edge kernel) on both
 XDEV_TOL = 1e-4
-#: H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
+#: fused scan kernels vs their plain version, one step's gradients, as a
+#: share of each tensor's largest gradient.  f32: the same f32 math in
+#: another summation order.  bf16: y1, z1, the pooled features and every dy
+#: round to bf16, and a last-bit difference in f32 before such a rounding
+#: flips a bf16 ulp (2**-8 relative) of one value, which the products carry
+#: on: every output channel of every tensor within FUSED_GRAD_TOL.  One
+#: thing more can happen to a right bf16 kernel: a flipped ulp moves a
+#: pre-activation across 0, the ReLU mask of that one (row, channel) flips
+#: and adds or drops a whole term, which stays in that output channel of the
+#: conv before it and of its BN.  So under bf16 at most
+#: FUSED_GRAD_FLIP_CHANNELS output channels of a tensor may exceed
+#: FUSED_GRAD_TOL, and none FUSED_GRAD_FLIP_TOL (a wrong term of the
+#: backward is an error of about 1 in every channel)
+FUSED_GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-3}
+FUSED_GRAD_FLIP_CHANNELS = {"float32": 0, "bfloat16": 2}
+FUSED_GRAD_FLIP_TOL = 5e-2
+#: the update rule, elementwise, step by step: the scan after t + 1 steps
+#: against the plain Adam update applied to the scan's own state after t
+#: steps, with that step's gradients taken from the same kernels
+#: (fused_step_grads) and the moments replayed from the earlier steps'.
+#: Both sides see the same parameter and gradient bits, so they differ only
+#: by the last bit of a division or of the bias correction: rtol 1e-5 in
+#: f32; one bf16 ulp (rtol 2**-7) under a bf16 carry, where that last bit
+#: can flip the final rounding or a stored moment's.  Share of elements of
+#: every tensor that must agree at each of the first FUSED_REPLAY_STEPS steps,
+#: on both lanes of a two-lane call (so a lane that read the other's bank,
+#: schedule or moments fails here, element by element):
+FUSED_REPLAY_RTOL = {"float32": 1e-5, "bfloat16": 2.0**-7}
+FUSED_REPLAY_SHARE = 0.999
+FUSED_REPLAY_STEPS = 4
+#: fused scan vs plain after 20 Adam steps, per tensor, as a share of the
+#: distance the plain version moved.  At lr 0.01 on weights of about 0.02
+#: every sign flip of a near-zero gradient is as large as the weight and
+#: later steps amplify it, so two right trajectories part normwise.  How far
+#: is measured in the same run: the plain version against itself with the
+#: rows of every minibatch in reverse order (the same math in another
+#: summation order).  The kernels may part from the plain version by at
+#: most FUSED_SCAN_FLOOR_FACTOR times the worst tensor's share of that
+#: floor, and never by more than FUSED_SCAN_CAP.  What such a bound can
+#: catch is measured in the same run too: the plain version with a fault
+#: planted through its arguments (FUSED_PLANTED_FAULTS) must part from the
+#: right plain version by more than the bound, or the script fails
+FUSED_SCAN_FLOOR_FACTOR = 2.5
+FUSED_SCAN_CAP = 0.6
+FUSED_PLANTED_FAULTS = ("moments left from another scan", "the other lane's bank")
+#: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
+#: the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -71,6 +126,20 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def report_build(name: str, log: str, build_dir):
+    """The ptxas resource report of one source in short (the template
+    instantiations make it long): kernels compiled, most registers, any
+    spill; the whole log goes to ``build_<name>.log`` beside the library."""
+    import re
+
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+    print(f"[{name}] ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
+          f"{sum(1 for v in spills if v)} with spills")
+    with open(os.path.join(build_dir, f"build_{name}.log"), "w") as f:
+        f.write(log)
 
 
 def edge_bound_ms(b, n, f, c):
@@ -137,12 +206,237 @@ def phase_edge_kernel(torch, dev):
     }
 
 
+def fused_bound(geom, n_steps: int, carry_bytes: int, bank_bytes: int):
+    """Least times for an ``n_steps`` scan of one lane, from the shapes.
+
+    Operations: the products (forward: conv1, conv2, shortcut; backward:
+    conv2's weight and input gradients, conv1's and the shortcut's weight
+    gradients) over the bf16 tensor-core peak, and over the f32 CUDA-core
+    peak that bounds a design without tensor cores.  Bytes the function
+    must move: the parameters read once and written once, the bank rows
+    that each step gathers, the schedule (idx int32, w f32) and the labels;
+    the Adam moments start at zero and are no output, so they need not
+    reach device memory at all.  For comparison, the traffic if parameters
+    and both bf16 moments were read and written in device memory every step
+    (no cache keeping the state).  Returns a dict of those figures."""
+    r, ci, co, b = geom.rows, geom.c_in, geom.c_out, geom.batch
+    fwd = 2.0 * r * co * (9 * ci + 9 * co + ci)
+    bwd = 2.0 * r * co * (9 * co + 9 * co + 9 * ci + ci)
+    n_params = 9 * ci * co + 9 * co * co + ci * co + 6 * co
+    flops = (fwd + bwd) * n_steps
+    nbytes = (2.0 * n_params * carry_bytes + float(n_steps) * b * geom.h_in * geom.h_in * ci * bank_bytes
+              + n_steps * b * (4 + 4 + 4))
+    state_bytes = float(n_params) * (2 * carry_bytes + 2 * 2 * 2) * n_steps
+    return {"flops": flops, "bytes": nbytes, "ms_tc": flops / PEAK_BF16_FLOPS * 1e3,
+            "ms_fma": flops / PEAK_F32_FLOPS * 1e3, "ms_bytes": nbytes / PEAK_BYTES * 1e3,
+            "state_bytes": state_bytes, "ms_state": state_bytes / PEAK_BYTES * 1e3}
+
+
+def phase_fused_inner_scan(torch, dev):
+    """The fused inner scan's kernels against the plain version on the card,
+    at the main path's geometry (ResNet10's final block at 224 px: 14x14x256
+    -> 7x7x512, minibatches of 5 out of a 500-row bank)."""
+    from mft_tpu_torch.kernels import fused_inner_scan as fis
+    from mft_tpu_torch.train.inner_loop import InnerLoopCfg, minibatch_schedule
+
+    geom, span, lr = fis.BlockGeom(), 500, 0.01
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    shapes = fis.param_shapes(geom)
+    p32 = {}
+    for k, shape in shapes.items():
+        if k.startswith("conv"):
+            p32[k] = randn(2, *shape) * (2.0 / shape[0]) ** 0.5  # fan-in normal, as the backbone's init
+        else:
+            p32[k] = randn(2, *shape) * 0.1 + (1.0 if k.endswith("_s") else 0.0)
+    banks32 = torch.relu(randn(2, span, geom.h_in, geom.h_in, geom.c_in))  # the trunk ends in a ReLU
+    bank_y = torch.arange(span, device=dev) % 5
+    idx, w = minibatch_schedule(torch.Generator().manual_seed(1), InnerLoopCfg(5, geom.batch, span), dev)
+    idx2 = torch.stack([idx, torch.flip(idx, dims=(0,))])  # lane 1 walks the schedule backwards
+    w_masked = w.clone()
+    w_masked[3, -2:] = 0.0  # one ragged minibatch among the checked steps
+    lane = lambda tree, l: {k: v[l] for k, v in tree.items()}
+    f32 = lambda tree: {k: v.float() for k, v in tree.items()}
+    failures, worst_abs = [], 0.0
+
+    # a geometry the kernels do not take is refused before any launch
+    bad = fis.BlockGeom(6, 8, 16, 2, 2)
+    before = fis.LAUNCHES
+    try:
+        fis.fused_inner_scan({k: randn(*shape) for k, shape in fis.param_shapes(bad).items()}, randn(4, 6, 6, 8),
+                             bank_y[:4], idx[:1, :2] % 4, w[:1, :2], geom=bad, lr=lr)
+        failures.append(f"{bad} was not refused")
+    except ValueError as e:
+        print(f"fused_inner_scan refuses {bad}: {str(e)[:60]}...")
+    if fis.LAUNCHES != before:
+        failures.append("a refused call counted as a launch")
+
+    def grad_errors(got, want):
+        """Per tensor, per output channel (the last axis): largest error as a
+        share of the tensor's largest gradient."""
+        return {k: (got[k] - want[k]).abs().reshape(-1, want[k].shape[-1]).amax(dim=0)
+                / want[k].abs().max().clamp(min=1e-30) for k in fis.PKEYS}
+
+    def check_step_grads(name, label, p_at, t):
+        """fused_step_grads against the plain version at the parameters
+        ``p_at`` on lane 0's minibatch ``t``; beside it, for scale, the plain
+        version against itself with the minibatch's rows in reverse order."""
+        i, wt = idx[t], w_masked[t]
+        got, loss = fis.fused_step_grads(p_at, banks[0], bank_y, i, wt, geom=geom)
+        torch.cuda.synchronize()
+        want, want_loss = fis.step_grads_reference(f32(p_at), banks[0][i], bank_y[i], wt, geom)
+        ri = torch.flip(i, dims=(0,))
+        other, _ = fis.step_grads_reference(f32(p_at), banks[0][ri], bank_y[ri], torch.flip(wt, dims=(0,)), geom)
+        errs, own = grad_errors(got, want), max(float(e.max()) for e in grad_errors(other, want).values())
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values()) and bool(torch.isfinite(loss))
+        tol, allowed = FUSED_GRAD_TOL[name], FUSED_GRAD_FLIP_CHANNELS[name]
+        worst = max(float(e.max()) for e in errs.values())
+        over = {k: torch.nonzero(e > tol).flatten().tolist() for k, e in errs.items() if bool((e > tol).any())}
+        rest = max((float(e[e <= tol].max()) for e in errs.values() if bool((e <= tol).any())), default=float("nan"))
+        print(f"fused_step_grads {name} {label}: loss {float(loss):.6f} vs plain {float(want_loss):.6f}; "
+              f"worst gradient error / max = {worst:.3e}; output channels above tol {tol:g}: {over or 'none'} "
+              f"(at most {allowed} per tensor, none above {FUSED_GRAD_FLIP_TOL:g}), the others' worst {rest:.3e}; "
+              f"plain vs plain with the rows reversed {own:.3e}")
+        if not finite or any(len(v) > allowed for v in over.values()) or (over and not worst <= FUSED_GRAD_FLIP_TOL) \
+                or not abs(float(loss) - float(want_loss)) <= 1e-3 * abs(float(want_loss)):
+            failures.append(f"step gradients {name} {label}")
+
+    for name in ("float32", "bfloat16"):
+        dt = getattr(torch, name)
+        p = {k: v.to(dt) for k, v in p32.items()}
+        banks = banks32.to(dt)
+        zeros = lambda l: {k: torch.zeros_like(v[l], dtype=torch.bfloat16) for k, v in p.items()}
+        # (a) one step's gradients, a full and a ragged minibatch
+        check_step_grads(name, "step 0", lane(p, 0), 0)
+        check_step_grads(name, "step 3 (ragged)", lane(p, 0), 3)
+
+        # (b) the scan: the first steps on two lanes (kept for the replay
+        # below), then 20 steps normwise on one lane and on two
+        def plain_steps(pl, mu, nu, bank, idx_l, n_steps):
+            """The plain scan step by step from any state (what
+            fused_inner_scan_reference does from zero moments)."""
+            for t in range(n_steps):
+                g, _ = fis.step_grads_reference(f32(pl), bank[idx_l[t]], bank_y[idx_l[t]], w_masked[t], geom)
+                pl, mu, nu = fis.adam_update_reference(pl, mu, nu, g, t + 1, lr)
+            return pl, mu, nu
+
+        moved_share = lambda a, b, start: {k: float((a[k].double() - b[k].double()).norm())
+                                           / float((b[k].double() - start[k].double()).norm()) for k in fis.PKEYS}
+        want20 = {l: fis.fused_inner_scan_reference(lane(p, l), banks[l], bank_y, idx2[l, :20], w_masked[:20],
+                                                    geom=geom, lr=lr) for l in (0, 1)}
+        tol20 = {}
+        for l in (0, 1):  # plain vs plain with every minibatch's rows reversed: the floor, and the bound from it
+            other = fis.fused_inner_scan_reference(lane(p, l), banks[l], bank_y, torch.flip(idx2[l, :20], dims=(1,)),
+                                                   torch.flip(w_masked[:20], dims=(1,)), geom=geom, lr=lr)
+            floor = max(moved_share(other, want20[l], lane(p, l)).values())
+            tol20[l] = (floor, min(FUSED_SCAN_FLOOR_FACTOR * floor, FUSED_SCAN_CAP))
+        states = {l: {0: lane(p, l)} for l in (0, 1)}  # lane -> steps -> that lane after a two-lane kernel scan
+        for n_steps, lanes in [(n, 2) for n in range(1, FUSED_REPLAY_STEPS + 1)] + [(20, 1), (20, 2)]:
+            before = fis.LAUNCHES
+            got = fis.fused_inner_scan_lanes({k: v[:lanes] for k, v in p.items()}, banks[:lanes].contiguous(), bank_y,
+                                             idx2[:lanes, :n_steps].contiguous(), w_masked[:n_steps], geom=geom, lr=lr)
+            torch.cuda.synchronize()
+            if fis.LAUNCHES != before + 1:
+                fail("fused_inner_scan_lanes did not launch its kernels on CUDA tensors")
+            for l in range(lanes):
+                label = f"fused_inner_scan {name} carry, T={n_steps}, L={lanes} lane {l}"
+                if not all(bool(torch.isfinite(v[l]).all()) for v in got.values()):
+                    failures.append(f"{label}: not finite")
+                if n_steps < 20:
+                    states[l][n_steps] = lane(got, l)
+                    continue
+                worst_abs = max(worst_abs, max(float((got[k][l].float() - want20[l][k].float()).abs().max())
+                                               for k in fis.PKEYS))
+                rel = moved_share(lane(got, l), want20[l], lane(p, l))
+                k_worst = max(rel, key=rel.get)
+                floor, tol = tol20[l]
+                print(f"{label}: worst |kernel - plain| / |plain - start| = {rel[k_worst]:.3e} ({k_worst}); "
+                      f"plain vs plain in another summation order {floor:.3e}; tol {tol:.3e} "
+                      f"(min of {FUSED_SCAN_FLOOR_FACTOR:g} x that and {FUSED_SCAN_CAP:g})")
+                if not rel[k_worst] <= tol:
+                    failures.append(label)
+        # what that 20-step bound catches: the plain version of lane 1 with a fault planted through its arguments
+        _, mu0, nu0 = plain_steps(lane(p, 0), zeros(0), zeros(0), banks[0], idx2[0], 20)
+        planted = {"no fault": (zeros(1), zeros(1), banks[1]),
+                   FUSED_PLANTED_FAULTS[0]: (mu0, nu0, banks[1]),
+                   FUSED_PLANTED_FAULTS[1]: (zeros(1), zeros(1), banks[0])}
+        for fault, (mu, nu, bank) in planted.items():
+            faulty, _, _ = plain_steps(lane(p, 1), mu, nu, bank, idx2[1], 20)
+            reading = max(moved_share(faulty, want20[1], lane(p, 1)).values())
+            caught = reading > tol20[1][1]
+            print(f"fused_inner_scan {name} carry, T=20, lane 1, plain version with a planted fault ({fault}): worst "
+                  f"share {reading:.3e} against the bound {tol20[1][1]:.3e}: {'caught' if caught else 'passes'}")
+            if caught == (fault == "no fault"):
+                failures.append(f"the 20-step bound {name} with {fault}")
+        # the update rule, step by step from the scan's own states, on both lanes
+        rtol = FUSED_REPLAY_RTOL[name]
+        for l in (0, 1):
+            mu, nu = zeros(l), zeros(l)
+            for t in range(FUSED_REPLAY_STEPS):
+                g, _ = fis.fused_step_grads(states[l][t], banks[l], bank_y, idx2[l, t], w_masked[t], geom=geom)
+                mine, mu, nu = fis.adam_update_reference(states[l][t], mu, nu, g, t + 1, lr)
+                close = {k: float(((states[l][t + 1][k].float() - mine[k].float()).abs()
+                                   <= 1e-7 + rtol * mine[k].float().abs()).float().mean()) for k in fis.PKEYS}
+                k_worst = min(close, key=close.get)
+                print(f"fused_inner_scan {name} carry, L=2 lane {l}, step {t + 1} vs the plain Adam update of its own "
+                      f"state and gradients: share of elements within rtol {rtol:g} >= {close[k_worst]:.5f} "
+                      f"({k_worst}) (at least {FUSED_REPLAY_SHARE:g})")
+                if not close[k_worst] >= FUSED_REPLAY_SHARE:
+                    failures.append(f"update rule {name} lane {l} step {t + 1}")
+        # the gradients once more, where the plain 20-step scan ended: the
+        # kernels on adapted weights, free of the two trajectories' parting
+        check_step_grads(name, "after 20 plain steps", want20[0], 20)
+    if failures:
+        fail("the fused inner scan disagrees with its plain version: " + ", ".join(failures))
+
+    # (c) the full scan: 500 steps, bf16 carry and bank, one lane
+    p = {k: v[0].to(torch.bfloat16) for k, v in p32.items()}
+    bank = banks32[0].to(torch.bfloat16)
+    n_steps = idx.shape[0]
+    out = fis.fused_inner_scan(p, bank, bank_y, idx, w, geom=geom, lr=lr)
+    torch.cuda.synchronize()
+    for k, shape in shapes.items():
+        if tuple(out[k].shape) != shape or out[k].dtype != torch.bfloat16 or not bool(torch.isfinite(out[k]).all()):
+            fail(f"the {n_steps}-step scan's {k} is not a finite bfloat16 {shape}")
+    ms = cuda_time_ms(lambda: fis.fused_inner_scan(p, bank, bank_y, idx, w, geom=geom, lr=lr), iters=3, warmup=1)
+    plain_ms = cuda_time_ms(lambda: fis.fused_inner_scan_reference(p, bank, bank_y, idx, w, geom=geom, lr=lr),
+                            iters=1, warmup=0)
+    b = fused_bound(geom, n_steps, 2, 2)
+    bound_ms = max(b["ms_tc"], b["ms_bytes"])
+    per_step = fis.kernels_per_step()
+    label = f"fused_inner_scan T={n_steps} bf16 L=1"
+    print(f"{label}: kernel_ms={ms:.3f} ({ms / n_steps * 1e3:.1f} us per step, {per_step} device kernels per step, "
+          f"{per_step * n_steps} per call)")
+    print(f"{label}: plain_ms={plain_ms:.3f} (one run of all {n_steps} steps, no warm-up)")
+    print(f"{label}: {b['flops'] / 1e12:.3f} TFLOP -> bf16 tensor cores {b['ms_tc']:.3f} ms; {b['bytes'] / 1e9:.4f} GB "
+          f"that must move (parameters in and out, gathered bank rows, schedule) -> {b['ms_bytes']:.3f} ms; "
+          f"bound_ms={bound_ms:.3f}; the kernels take {ms / bound_ms:.1f} x that")
+    print(f"{label}: f32 FMA bound of this design {b['ms_fma']:.3f} ms; the kernels reach {b['ms_fma'] / ms:.3f} of it "
+          f"({b['flops'] / ms / 1e9:.2f} TFLOP/s)")
+    print(f"{label}: if no cache kept the state, parameters and both moments in and out of device memory every step "
+          f"would be {b['state_bytes'] / 1e9:.2f} GB, {b['ms_state']:.3f} ms (not the bound: the state fits L2)")
+    return {
+        "name": "fused_inner_scan",
+        "route": "cuda",
+        "source": "mft_tpu_torch/kernels/csrc/fused_inner_scan.cu",
+        "replaces": "mft_tpu/ops/pallas/fused_inner_scan.py:386",
+        "max_abs_err": worst_abs,  # adapted parameters after the 20-step scans, worst case
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations" if b["ms_tc"] >= b["ms_bytes"] else "bytes",
+        "library_ms": None,  # no single PyTorch call computes a 500-step adaptation scan
+    }
+
+
 def phase_cross_device(torch, dev):
-    """One small strict-f32 episode on the card (edge kernel on) and on the
-    CPU (plain version), same weights, draws and schedule.  Without inner
-    steps the scores must agree to XDEV_TOL; with one epoch of each member
-    the argmax must agree (a few Adam steps amplify rounding, since each
-    first step moves every weight by about lr whatever the gradient's size)."""
+    """One small episode on the card (edge kernel on) and on the CPU (plain
+    versions), same weights, draws and schedule: strict f32 with the eager
+    inner loop, then bf16 Adam moments with the fused scan (its kernels on
+    the card, its plain version on the CPU).  Without inner steps the
+    scores must agree to XDEV_TOL; with one epoch of each member the argmax
+    must agree (a few Adam steps amplify rounding, since each first step
+    moves every weight by about lr whatever the gradient's size)."""
     import numpy as np
 
     from mft_tpu_torch.core.episode import EpisodeSpec
@@ -162,8 +456,9 @@ def phase_cross_device(torch, dev):
     images = np.random.RandomState(2).randint(0, 256, (5, 8, 36, 36, 3), dtype=np.uint8)
     to = lambda t, d: {k: to(v, d) for k, v in t.items()} if isinstance(t, dict) else (
         [to(v, d) for v in t] if isinstance(t, list) else t.to(d))
-    for epochs in (0, 1):
-        tcfg = ee.TransferCfg(fine_tune_epochs=epochs, linear_epochs=epochs, opt_state_dtype="float32")
+    for epochs, mode in ((0, "eager"), (1, "eager"), (0, "fused"), (1, "fused")):
+        tcfg = ee.TransferCfg(fine_tune_epochs=epochs, linear_epochs=epochs, inner_scan=mode,
+                              opt_state_dtype="float32" if mode == "eager" else "bfloat16")
         program = ee.make_eval_program(method="all", bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug,
                                        gen_examples=1)
         scores = {}
@@ -173,9 +468,10 @@ def phase_cross_device(torch, dev):
             scores[d], _ = program(models, base, torch.Generator().manual_seed(3))
         diff = float((scores[dev].cpu() - scores["cpu"]).abs().max())
         agree = bool((scores[dev].cpu().argmax(1) == scores["cpu"].argmax(1)).all())
-        print(f"card vs CPU eval (32 px, f32, {epochs} inner epochs): max |d scores| = {diff:.3e}, argmax agree = {agree}")
+        print(f"card vs CPU eval (32 px, f32, {mode} inner loop, {epochs} inner epochs): max |d scores| = {diff:.3e}, "
+              f"argmax agree = {agree}")
         if not agree or (epochs == 0 and not diff <= XDEV_TOL):
-            fail(f"card eval disagrees with the CPU eval at {epochs} inner epochs (tol {XDEV_TOL:g} without steps)")
+            fail(f"card eval ({mode}) disagrees with the CPU eval at {epochs} inner epochs (tol {XDEV_TOL:g} without steps)")
 
 
 def write_checkpoints(torch, save_dir):
@@ -218,8 +514,9 @@ def drive(finetune, label: str, argv, episodes: int) -> float:
 
 
 def phase_profile(torch, finetune, argv, steady_s: float):
-    """One more main-path episode under ``torch.profiler``: the edge
-    kernel's symbol must be on the device timeline.  Prints where the time
+    """One more main-path episode under ``torch.profiler``: the symbols of
+    the edge kernel and of the fused scan's kernels must be on the device
+    timeline.  Prints where the time
     goes: each eval phase's host and device milliseconds (the
     ``<phase>:<member>`` ranges of train/eval_engine.py), the kernels with
     the most device time, and the device's idle share, which is 1 - (device
@@ -243,13 +540,22 @@ def phase_profile(torch, finetune, argv, steady_s: float):
     if edge_us == 0:
         fail("the profiler traced device kernels but not the edge kernel")
     print(f"profiler: edge kernel on the device timeline, {edge_us / 1e3:.4f} ms device time in one episode")
+    scan_symbols = ("conv_gemm_kernel", "conv_wgrad_kernel", "bn_fwd_kernel", "bn_bwd_kernel", "pool_ce_kernel",
+                    "adam_kernel")
+    scan_us = {sym: sum(e.self_device_time_total for e in on_device if sym in e.key) for sym in scan_symbols}
+    if min(scan_us.values()) == 0:
+        fail(f"the profiler traced device kernels but not every kernel of the fused scan: {scan_us}")
+    print(f"profiler: fused scan kernels on the device timeline, {sum(scan_us.values()) / 1e3:.3f} ms device time in "
+          f"one episode: " + ", ".join(f"{sym} {us / 1e3:.3f}" for sym, us in scan_us.items()))
     print(f"profiler: episode {res.seconds[0]:.3f} s under the profiler, {steady_s:.3f} s without; "
           f"device time {busy_us / 1e6:.4f} s; idle share {1.0 - busy_us / 1e6 / steady_s:.4f}")
     ranges = [e for e in events if e.device_type == DeviceType.CPU and e.key.split(":")[0] in PHASES]
     for e in sorted(ranges, key=lambda e: -e.cpu_time_total):
         print(f"profiler phase {e.key}: host {e.cpu_time_total / 1e3:.3f} ms, device {e.device_time_total / 1e3:.3f} ms")
+    print(f"profiler: the fused scan's {sum(scan_us.values()) / 1e3:.3f} ms belong to adapt:gnn; the profiler does not "
+          f"attribute kernels launched from the C loop to the range that encloses the call")
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profiler kernel {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  {e.key[:90]}")
+        print(f"profiler kernel {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  {e.key[:110]}")
 
 
 def main():
@@ -264,7 +570,7 @@ def main():
         fail(f"the port package is not beside chip_smoke.py ({e})")
     from mft_tpu_torch import kernels
     from mft_tpu_torch.cli import finetune
-    from mft_tpu_torch.kernels import build
+    from mft_tpu_torch.kernels import build, fused_inner_scan
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -284,12 +590,10 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s for {list(build.SOURCES)} "
           f"({'cached' if not logs else 'compiled ' + ', '.join(logs)})")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "ptxas" in line:
-                print(f"[{name}] {line.strip()}")
+        report_build(name, log, build.BUILD_DIR)
 
     # 3. every kernel against its plain version
-    rows = [phase_edge_kernel(torch, dev)]
+    rows = [phase_edge_kernel(torch, dev), phase_fused_inner_scan(torch, dev)]
 
     # 4. the eval on the card against the eval on the CPU
     phase_cross_device(torch, dev)
@@ -297,20 +601,25 @@ def main():
     # 5. the main path at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
         pj = write_checkpoints(torch, save_dir)
-        argv = ["--device", "cuda", "--method", "all", "--use_pallas", "--test_dataset", "synthetic",
-                "--model", "ResNet10", "--image_size", "224", "--n_shot", "5", "--gen_examples", "17",
-                "--fine_tune_epoch", "5", "--paths_json", pj]
+        common = ["--device", "cuda", "--method", "all", "--use_pallas", "--test_dataset", "synthetic",
+                  "--model", "ResNet10", "--image_size", "224", "--n_shot", "5", "--gen_examples", "17",
+                  "--fine_tune_epoch", "5", "--paths_json", pj]
+        argv = common + ["--inner_scan", "fused"]
         kernels.reset_launch_counts()
-        steady = drive(finetune, "main path", argv, EPISODES)
+        steady = drive(finetune, "main path (--inner_scan fused)", argv, EPISODES)
         counts = kernels.launch_counts()
-        print(f"main path kernel launches: {counts}")
+        print(f"main path kernel launches: {counts} (fused_inner_scan: one call per episode, each enqueues "
+              f"{fused_inner_scan.kernels_per_step()} device kernels per inner step)")
         for row in rows:
             row["launches"] = counts[row["name"]]
             if row["launches"] == 0:
                 fail(f"kernel {row['name']} was never launched on the main path")
 
+        # the eager inner loop in the same call, on the same host
+        eager = drive(finetune, "eager path (--inner_scan eager)", common + ["--inner_scan", "eager"], 2)
+        print(f"seconds/episode fused {steady:.4f} vs eager {eager:.4f} (same call): eager / fused = {eager / steady:.3f}")
         # the strict-parity numerics at the same width
-        drive(finetune, "strict f32 path", argv + ["--dtype", "float32", "--inner_param_dtype", "float32"], 2)
+        drive(finetune, "strict f32 path", common + ["--dtype", "float32", "--inner_param_dtype", "float32"], 2)
         phase_profile(torch, finetune, argv, steady)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

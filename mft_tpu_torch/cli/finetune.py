@@ -85,7 +85,8 @@ def build_models(a, paths, bcfg, device):
 
 def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device) -> EvalResult:
     """The episode loop; prints each episode's accuracy."""
-    tcfg = ee.TransferCfg(fine_tune_epochs=a.fine_tune_epoch, inner_param_dtype=a.inner_param_dtype)
+    tcfg = ee.TransferCfg(fine_tune_epochs=a.fine_tune_epoch, inner_param_dtype=a.inner_param_dtype,
+                           inner_scan=a.inner_scan)
     program = ee.make_eval_program(method=a.method, bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg,
                                    gen_examples=a.gen_examples)
     stream = EpisodeStream(manifest, spec, a.iter_num, base_size=a.base_size, seed=a.seed)

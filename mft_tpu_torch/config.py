@@ -94,6 +94,8 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--seed", default=10, type=int)
     ap.add_argument("--paths_json", default=None)
     ap.add_argument("--use_pallas", action="store_true", help="the CUDA edge kernel in the GNN head")
+    ap.add_argument("--inner_scan", default="eager", choices=["eager", "fused"],
+                    help="the GNN member's inner loop: one eager step per minibatch, or the fused CUDA scan")
     a = ap.parse_args(argv)
     if a.base_size <= 0:
         a.base_size = int(a.image_size * 1.15)

@@ -5,6 +5,10 @@ reference's ``.tar`` state dicts.
   ``w [in, out]``) onto the port's trees: HWIO conv weights -> OIHW, ``[F, C]``
   linear and 1x1-conv matrices -> ``[C, F]``, BN scale/bias/mean/var as they
   are.  :func:`to_jax` is its inverse.
+* :func:`flat_from_jax` / :func:`flat_to_jax` carry the fused inner scan's
+  flat parameter dict (``kernels/fused_inner_scan.py`` ``PKEYS``) across.  The
+  port keeps the JAX module's layout there (HWIO conv weights flattened to
+  ``[kh*kw*ci, co]``, BN vectors ``[1, C]``), so only the container changes.
 * :func:`from_state_dict` / :func:`to_state_dict` map the reference's
   ``model.state_dict()`` key layout (``feature.trunk.*``, ``fc.*``,
   ``gnn.*``, ``classifier.*``; the mapping of
@@ -66,6 +70,23 @@ def to_jax(params, stats=None):
 
     out = _map_tree(params, leaf)
     return (out, _map_tree(stats, lambda k, t: t.detach().cpu().numpy())) if stats is not None else (out, None)
+
+
+def flat_from_jax(flat_np: dict, *, dtype=None, device="cpu") -> dict:
+    """The JAX fused inner scan's flat ``PKEYS`` dict (numpy leaves, conv
+    weights in HWIO matrix form) -> the port's flat dict of tensors, same
+    keys, shapes and layout; ``dtype`` optionally casts (the carry dtype)."""
+    from mft_tpu_torch.kernels.fused_inner_scan import PKEYS
+
+    if set(flat_np) != set(PKEYS):
+        raise ValueError(f"expected the keys {PKEYS}, got {sorted(flat_np)}")
+    out = {k: _tensor(np.asarray(flat_np[k], dtype=np.float32), device) for k in PKEYS}
+    return {k: v.to(dtype) for k, v in out.items()} if dtype is not None else out
+
+
+def flat_to_jax(flat: dict) -> dict:
+    """Inverse of :func:`flat_from_jax`: f32 numpy leaves in the JAX layout."""
+    return {k: np.ascontiguousarray(v.detach().float().cpu().numpy()) for k, v in flat.items()}
 
 
 # --------------------------------------------------------------------------

@@ -7,10 +7,10 @@ through.
 
 from __future__ import annotations
 
-from mft_tpu_torch.kernels import edge_mlp
+from mft_tpu_torch.kernels import edge_mlp, fused_inner_scan
 
 #: kernel name -> module holding its wrapper and LAUNCHES count
-MODULES = {"edge_abs_diff_matmul": edge_mlp}
+MODULES = {"edge_abs_diff_matmul": edge_mlp, "fused_inner_scan": fused_inner_scan}
 
 
 def launch_counts() -> dict:

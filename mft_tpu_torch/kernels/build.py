@@ -23,7 +23,7 @@ NVCC_FLAGS = [
     "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 ]
 #: every kernel source of the package
-SOURCES = ("edge_mlp",)
+SOURCES = ("edge_mlp", "fused_inner_scan")
 
 _loaded: dict = {}
 

@@ -34,12 +34,13 @@ import torch
 from torch.profiler import record_function
 
 from mft_tpu_torch.core.episode import EpisodeSpec, flatten_episode, query_labels, support_labels
+from mft_tpu_torch.kernels import fused_inner_scan as fis
 from mft_tpu_torch.methods.baseline import ce_loss, classifier_logits, init_classifier
 from mft_tpu_torch.methods.gnnnet import GnnNetCfg, gnn_scores
 from mft_tpu_torch.models import backbone as bb
 from mft_tpu_torch.ops.augment import augment_batch, center_batch, pipeline_dtype, to_float
 from mft_tpu_torch.train import optimizers as opt
-from mft_tpu_torch.train.inner_loop import InnerLoopCfg, inner_fit
+from mft_tpu_torch.train.inner_loop import InnerLoopCfg, inner_fit, minibatch_schedule
 
 
 #: profiler range names of one member's phases, in run order
@@ -59,6 +60,11 @@ class TransferCfg(NamedTuple):
     opt_state_dtype: str = "bfloat16"
     #: dtype the adapted block (and head) is carried in across inner steps
     inner_param_dtype: str = "float32"
+    #: the GNN member's inner loop: 'eager' (one autodiff step per minibatch,
+    #: train/inner_loop.py) or 'fused' (the whole scan in hand-written CUDA
+    #: kernels, kernels/fused_inner_scan.py; needs bf16 Adam moments).  The
+    #: linear member trains a head too and always runs eager.
+    inner_scan: str = "eager"
 
 
 def bank_labels(spec: EpisodeSpec, replicas: int, device="cpu") -> torch.Tensor:
@@ -132,14 +138,48 @@ def _prepare_adapt(params, stats, bank_y, fmap_bank, *, bcfg: bb.ResNetCfg, tcfg
     return {"adapt": block_p, "head": head}, loss_fn, tx, icfg, lambda a: (a["adapt"], a["head"])
 
 
+def _adapt_block_fused(block_p, bank_y, fmap_bank, gen, *, bcfg, tcfg, icfg: InnerLoopCfg, schedule=None):
+    """The GNN member's inner loop through the fused scan: the same
+    schedule draw as ``inner_fit`` (so both choices see the same
+    minibatches), one kernel call for all steps, and the adapted block back
+    in the port's layout and the carry dtype."""
+    if tcfg.opt_state_dtype != "bfloat16":
+        raise ValueError("inner_scan='fused' stores its Adam moments in bfloat16; "
+                         f"opt_state_dtype={tcfg.opt_state_dtype!r} needs inner_scan='eager'")
+    half_res = len(bcfg.stage_sizes) > 1 and bcfg.stage_sizes[-1] == 1
+    if set(block_p) != {"conv1", "bn1", "conv2", "bn2", "conv_sc", "bn_sc"} or bcfg.stage_sizes[-1] != 1:
+        raise ValueError("inner_scan='fused' adapts a single final SimpleBlock with a 1x1 shortcut conv; "
+                         f"this backbone's final stage has {bcfg.stage_sizes[-1]} block(s) with keys {sorted(block_p)}")
+    if fmap_bank.shape[2] != fmap_bank.shape[3] or fmap_bank.shape[2] % (2 if half_res else 1):
+        raise ValueError(f"inner_scan='fused' needs a square feature map that the stride divides, got {tuple(fmap_bank.shape)}")
+    if icfg.epochs == 0:
+        return block_p
+    c_out, c_in = block_p["conv1"].shape[:2]
+    geom = fis.BlockGeom(h_in=fmap_bank.shape[2], c_in=c_in, c_out=c_out, stride=2 if half_res else 1,
+                         batch=icfg.batch_size)
+    dev = fmap_bank.device
+    idx, w = schedule if schedule is not None else minibatch_schedule(gen, icfg, dev)
+    adapted = fis.fused_inner_scan(fis.block_to_flat(block_p), fis.bank_to_nhwc(fmap_bank), bank_y, idx.to(dev), w.to(dev),
+                                   geom=geom, lr=tcfg.inner_lr)
+    return fis.flat_to_block(adapted, geom)
+
+
 def _adapt_block(params, stats, bank_y, fmap_bank, gen, *, bcfg, tcfg, epochs, head=None, perm_span=None,
                  schedule=None):
     """Fine-tune the final block (and the optional head) on the feature
     bank.  ``perm_span``: the permutations cover only the first rows (the
-    linear member's clean-support-only quirk).  Returns ``(block, head)``."""
+    linear member's clean-support-only quirk).  Returns ``(block, head)``.
+    ``tcfg.inner_scan == 'fused'`` sends the head-less (GNN) member through
+    the fused scan; with a head the loop stays eager."""
+    if tcfg.inner_scan not in ("eager", "fused"):
+        raise ValueError(f"inner_scan must be 'eager' or 'fused', not {tcfg.inner_scan!r}")
     p0, loss_fn, tx, icfg, finish = _prepare_adapt(
         params, stats, bank_y, fmap_bank, bcfg=bcfg, tcfg=tcfg, epochs=epochs, head=head, perm_span=perm_span,
     )
+    if tcfg.inner_scan == "fused" and head is None:
+        with torch.no_grad():
+            return finish(_adapt_block_fused(p0, bank_y, fmap_bank, gen, bcfg=bcfg, tcfg=tcfg, icfg=icfg,
+                                             schedule=schedule))
     return finish(inner_fit(loss_fn, p0, tx, gen, icfg, schedule=schedule, device=fmap_bank.device))
 
 

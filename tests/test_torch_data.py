@@ -85,9 +85,12 @@ def test_checkpoint_dir_and_paths_match(method, kw):
 
 def test_finetune_flag_defaults_match():
     """The port's eval flags keep the JAX driver's defaults (bf16 fast path
-    included) and add only ``--device``."""
+    included) and add only ``--device`` and ``--inner_scan`` (which kernel
+    path runs the GNN member's inner loop; the JAX package never wired its
+    fused scan into an entry point)."""
     t = vars(tcfg.parse_finetune_args([]))
     j = vars(jcfg.parse_args("train", [], overrides={"dtype": "bfloat16", "inner_param_dtype": "bfloat16"}))
     assert t.pop("device") == "cuda"
+    assert t.pop("inner_scan") == "eager"
     for k, v in t.items():
         assert k in j and j[k] == v, k
