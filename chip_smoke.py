@@ -101,6 +101,17 @@ FUSED_REPLAY_STEPS = 4
 FUSED_SCAN_FLOOR_FACTOR = 2.5
 FUSED_SCAN_CAP = 0.6
 FUSED_PLANTED_FAULTS = ("moments left from another scan", "the other lane's bank")
+#: one product of the fused scan's step, tensor-core kernel vs the plain f32
+#: product of the same bf16 operands, as a share of the output's largest
+#: value: both sides sum exact bf16 x bf16 products in f32, in another order
+FUSED_PRODUCT_TOL = 1e-4
+#: a fault the product check must catch: the plain weight gradient taken over
+#: rows padded to the kernels' 64-row tiles with the dead rows (m >= 245) not
+#: zero, which is what a kernel that did not mask them would compute
+FUSED_PRODUCT_FAULT = "dead rows of the last 64-row tile not zero"
+#: a short scan whose launches all fit the driver's launch queue, so that the
+#: host's time inside the C call is the enqueue alone
+FUSED_ENQUEUE_STEPS = 60
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
 #: the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -126,6 +137,39 @@ def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_us(fn, iters: int = 20) -> dict:
+    """Device time per call of ``fn`` as ``torch.profiler`` sees it: kernel
+    name -> microseconds, and "total".  Free of the host's launch cost, which
+    a CUDA-event time of a short kernel behind a Python wrapper is not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {e.key: e.self_device_time_total / iters for e in prof.key_averages()
+           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
+    if not out:
+        fail("the profiler recorded no device time for a kernel")
+    out["total"] = sum(out.values())
+    return out
+
+
+def short_name(key: str) -> str:
+    """A kernel's profiler key without return type, namespaces and parameter list."""
+    name = key.replace("(anonymous namespace)::", "").replace("void ", "")
+    depth = 0
+    for i, ch in enumerate(name):  # cut at the "(" that opens the parameter list
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i][-70:]
+    return name[-70:]
 
 
 def report_build(name: str, log: str, build_dir):
@@ -230,6 +274,81 @@ def fused_bound(geom, n_steps: int, carry_bytes: int, bank_bytes: int):
     return {"flops": flops, "bytes": nbytes, "ms_tc": flops / PEAK_BF16_FLOPS * 1e3,
             "ms_fma": flops / PEAK_F32_FLOPS * 1e3, "ms_bytes": nbytes / PEAK_BYTES * 1e3,
             "state_bytes": state_bytes, "ms_state": state_bytes / PEAK_BYTES * 1e3}
+
+
+def conv_library_ms(torch, which, pr, geom):
+    """Yardstick only: the one PyTorch call for the same convolution, bf16,
+    channels-last; never called by the port."""
+    import torch.nn.functional as F
+
+    b, ci, co, s = geom.batch, geom.c_in, geom.c_out, geom.stride
+    first = which.startswith("conv1") or which.startswith("conv_sc")
+    k, pad = (1, 0) if which.startswith("conv_sc") else (3, 1)
+    cin, stride = (ci, s) if first else (co, 1)
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # a channels-last view of the NHWC operand
+    w4 = (pr["w"] if pr["w"] is not None else torch.zeros((k * k * cin, co), dtype=torch.bfloat16, device="cuda"))
+    w4 = w4.reshape(k, k, cin, co).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    dy4 = None if pr["dy"] is None else nchw(pr["dy"].reshape(b, geom.h_out, geom.h_out, co))
+    if which.endswith("_dw"):
+        x4 = nchw(pr["x"])
+        fn = lambda: torch.nn.grad.conv2d_weight(x4, w4.shape, dy4, stride=stride, padding=pad)
+    elif which == "conv2_dx":
+        fn = lambda: torch.nn.grad.conv2d_input((b, co, geom.h_out, geom.h_out), w4, dy4, stride=1, padding=1)
+    else:
+        x4 = nchw(pr["x"])
+        fn = lambda: F.conv2d(x4, w4, stride=stride, padding=pad)
+    return cuda_time_ms(fn), device_us(fn)["total"]
+
+
+def phase_fused_products(torch, fis, geom, p_bf16, bank, bank_y, idx_t, w_t, failures):
+    """Each of the seven products of a step alone, bf16, at the main path's
+    shapes: the tensor-core kernel against the plain product of the same
+    operands (those of the plain step), its time beside its operations bound
+    and the PyTorch convolution call, and the planted fault."""
+    f32 = {k: v.float() for k, v in p_bf16.items()}
+    prods = fis.step_products_reference(f32, bank[idx_t], bank_y[idx_t], w_t, geom)
+    r = geom.rows
+    for which in fis.PRODUCTS:
+        pr = prods[which]
+        ops = [None if pr[k] is None else pr[k].contiguous() for k in ("w", "x", "dy")]
+        got = fis.fused_product(which, *ops, geom)
+        fma = fis.fused_product(which, *ops, geom, route="fma")
+        torch.cuda.synchronize()
+        scale = float(pr["out"].abs().max())
+        err = float((got - pr["out"]).abs().max()) / scale
+        err_fma = float((fma - pr["out"]).abs().max()) / scale
+        flops = 2.0 * pr["out"].shape[0] * pr["out"].shape[1] * (r if which.endswith("_dw") else
+                                                                 (pr["w"].shape[0]))
+        us = cuda_time_ms(lambda: fis.fused_product(which, *ops, geom)) * 1e3
+        us_fma = cuda_time_ms(lambda: fis.fused_product(which, *ops, geom, route="fma")) * 1e3
+        dev = device_us(lambda: fis.fused_product(which, *ops, geom))
+        dev_fma = device_us(lambda: fis.fused_product(which, *ops, geom, route="fma"))
+        mma_us = sum(v for k, v in dev.items() if "_mma_kernel" in k)
+        lib_ms, lib_dev_us = conv_library_ms(torch, which, pr, geom)
+        bound_us = flops / PEAK_BF16_FLOPS * 1e6
+        print(f"fused_product {which} bf16 library (one torch conv call, bf16 channels-last; yardstick only): "
+              f"{lib_ms * 1e3:.2f} us by CUDA events, {lib_dev_us:.2f} us on the device")
+        print(f"fused_product {which} bf16: tensor cores vs plain {err:.3e} of the output's max (tol "
+              f"{FUSED_PRODUCT_TOL:g}), FMA route vs plain {err_fma:.3e}; on the device {mma_us:.2f} us in the product "
+              f"kernel, {dev['total']:.2f} us with the sum of its K splits (FMA route {dev_fma['total']:.2f} us); "
+              f"{flops / 1e9:.3f} GFLOP, bound {bound_us:.3f} us at the bf16 peak, {bound_us / mma_us:.4f} of the peak; "
+              f"by CUDA events behind the Python wrapper {us:.2f} us (FMA route {us_fma:.2f} us)")
+        if not (bool(torch.isfinite(got).all()) and err <= FUSED_PRODUCT_TOL and err_fma <= FUSED_PRODUCT_TOL):
+            failures.append(f"product {which}")
+        if which == "conv1_dw":  # the planted fault
+            pieces = fis._patches3x3(fis._pad_hw(pr["x"]), geom.stride)
+            pad = (r + 63) // 64 * 64 - r
+            a = torch.cat([torch.cat([pc, torch.ones((pad, pc.shape[1]), dtype=pc.dtype, device=pc.device)])
+                           for pc in pieces], dim=1)
+            dy = torch.cat([pr["dy"], 1e-3 * torch.ones((pad, pr["dy"].shape[1]), dtype=pr["dy"].dtype,
+                                                        device=pr["dy"].device)])
+            faulty = fis._mm(a.t(), dy)
+            reading = float((got - faulty).abs().max()) / scale
+            caught = reading > FUSED_PRODUCT_TOL
+            print(f"fused_product {which} bf16, plain version with a planted fault ({FUSED_PRODUCT_FAULT}; {pad} such "
+                  f"rows): {reading:.3e} against {FUSED_PRODUCT_TOL:g}: {'caught' if caught else 'passes'}")
+            if not caught:
+                failures.append(f"the product check with {FUSED_PRODUCT_FAULT}")
 
 
 def phase_fused_inner_scan(torch, dev):
@@ -386,6 +505,27 @@ def phase_fused_inner_scan(torch, dev):
         # the gradients once more, where the plain 20-step scan ended: the
         # kernels on adapted weights, free of the two trajectories' parting
         check_step_grads(name, "after 20 plain steps", want20[0], 20)
+    # (b2) the tensor-core route (a bf16 bank's own) on its own terms
+    p16 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    banks = banks32.to(torch.bfloat16)
+    phase_fused_products(torch, fis, geom, lane(p16, 0), banks[0], bank_y, idx[3], w_masked[3], failures)
+    tol, allowed = FUSED_GRAD_TOL["bfloat16"], FUSED_GRAD_FLIP_CHANNELS["bfloat16"]
+    for label, p_at in (("bf16 carry", lane(p16, 0)), ("f32 carry, bf16 bank", lane(p32, 0))):
+        # one step's gradients by both routes on the card; the f32 carry also against the plain version
+        tc, tc_loss = fis.fused_step_grads(p_at, banks[0], bank_y, idx[3], w_masked[3], geom=geom)
+        fma, fma_loss = fis.fused_step_grads(p_at, banks[0], bank_y, idx[3], w_masked[3], geom=geom, route="fma")
+        want, _ = fis.step_grads_reference(f32(p_at), banks[0][idx[3]], bank_y[idx[3]], w_masked[3], geom)
+        torch.cuda.synchronize()
+        for other_name, other in (("the FMA route", fma), ("the plain version", want)):
+            errs = grad_errors(tc, other)
+            worst = max(float(e.max()) for e in errs.values())
+            over = {k: torch.nonzero(e > tol).flatten().tolist() for k, e in errs.items() if bool((e > tol).any())}
+            print(f"fused_step_grads {label}, step 3 (ragged): tensor-core route vs {other_name}: worst gradient "
+                  f"error / max = {worst:.3e}; output channels above tol {tol:g}: {over or 'none'} (at most {allowed} "
+                  f"per tensor, none above {FUSED_GRAD_FLIP_TOL:g}); loss {float(tc_loss):.6f} vs FMA "
+                  f"{float(fma_loss):.6f}")
+            if any(len(v) > allowed for v in over.values()) or (over and not worst <= FUSED_GRAD_FLIP_TOL):
+                failures.append(f"step gradients, tensor-core route vs {other_name}, {label}")
     if failures:
         fail("the fused inner scan disagrees with its plain version: " + ", ".join(failures))
 
@@ -401,10 +541,30 @@ def phase_fused_inner_scan(torch, dev):
     ms = cuda_time_ms(lambda: fis.fused_inner_scan(p, bank, bank_y, idx, w, geom=geom, lr=lr), iters=3, warmup=1)
     plain_ms = cuda_time_ms(lambda: fis.fused_inner_scan_reference(p, bank, bank_y, idx, w, geom=geom, lr=lr),
                             iters=1, warmup=0)
+    # where a step's device time goes, kernel by kernel (the profiler over a short scan)
+    short = device_us(lambda: fis.fused_inner_scan(p, bank, bank_y, idx[:FUSED_ENQUEUE_STEPS], w[:FUSED_ENQUEUE_STEPS],
+                                                   geom=geom, lr=lr), iters=2)
+    per_kernel = sorted(((k, v / FUSED_ENQUEUE_STEPS) for k, v in short.items() if k != "total"), key=lambda kv: -kv[1])
+    print(f"fused_inner_scan bf16 L=1, device us per step by kernel ({FUSED_ENQUEUE_STEPS}-step scans under the "
+          f"profiler, {short['total'] / FUSED_ENQUEUE_STEPS:.2f} us in all): "
+          + "; ".join(f"{v:.2f} {short_name(k)}" for k, v in per_kernel))
     b = fused_bound(geom, n_steps, 2, 2)
     bound_ms = max(b["ms_tc"], b["ms_bytes"])
-    per_step = fis.kernels_per_step()
+    per_step = fis.kernels_per_step(torch.bfloat16)
     label = f"fused_inner_scan T={n_steps} bf16 L=1"
+    # the host's share: seconds inside the C call (enqueue, no synchronise) beside the device's
+    torch.cuda.synchronize()
+    fis.fused_inner_scan(p, bank, bank_y, idx, w, geom=geom, lr=lr)
+    host_full = fis.LAST_ENQUEUE_SECONDS
+    torch.cuda.synchronize()
+    fis.fused_inner_scan(p, bank, bank_y, idx[:FUSED_ENQUEUE_STEPS], w[:FUSED_ENQUEUE_STEPS], geom=geom, lr=lr)
+    host_short = fis.LAST_ENQUEUE_SECONDS
+    torch.cuda.synchronize()
+    enqueue_us = host_short / FUSED_ENQUEUE_STEPS * 1e6
+    print(f"{label}: host inside the C call {host_full * 1e3:.3f} ms for {n_steps} steps (the launch queue fills, so "
+          f"this follows the device); {FUSED_ENQUEUE_STEPS} steps, which fit the queue: {host_short * 1e3:.3f} ms = "
+          f"{enqueue_us:.2f} us per step to enqueue against {ms / n_steps * 1e3:.2f} us per step on the device: "
+          f"enqueue / device = {enqueue_us / (ms / n_steps * 1e3):.3f}")
     print(f"{label}: kernel_ms={ms:.3f} ({ms / n_steps * 1e3:.1f} us per step, {per_step} device kernels per step, "
           f"{per_step * n_steps} per call)")
     print(f"{label}: plain_ms={plain_ms:.3f} (one run of all {n_steps} steps, no warm-up)")
@@ -540,8 +700,8 @@ def phase_profile(torch, finetune, argv, steady_s: float):
     if edge_us == 0:
         fail("the profiler traced device kernels but not the edge kernel")
     print(f"profiler: edge kernel on the device timeline, {edge_us / 1e3:.4f} ms device time in one episode")
-    scan_symbols = ("conv_gemm_kernel", "conv_wgrad_kernel", "bn_fwd_kernel", "bn_bwd_kernel", "pool_ce_kernel",
-                    "adam_kernel")
+    scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAll", "bn_fwd_kernel", "bn_bwd_kernel",
+                    "pool_ce_kernel", "adam_kernel")
     scan_us = {sym: sum(e.self_device_time_total for e in on_device if sym in e.key) for sym in scan_symbols}
     if min(scan_us.values()) == 0:
         fail(f"the profiler traced device kernels but not every kernel of the fused scan: {scan_us}")
@@ -594,6 +754,9 @@ def main():
 
     # 3. every kernel against its plain version
     rows = [phase_edge_kernel(torch, dev), phase_fused_inner_scan(torch, dev)]
+    if "--kernels-only" in sys.argv[1:]:  # for work on a kernel: stop after the checks against the plain versions
+        print("kernels only: stopping before the eval phases")
+        return
 
     # 4. the eval on the card against the eval on the CPU
     phase_cross_device(torch, dev)
@@ -609,7 +772,7 @@ def main():
         steady = drive(finetune, "main path (--inner_scan fused)", argv, EPISODES)
         counts = kernels.launch_counts()
         print(f"main path kernel launches: {counts} (fused_inner_scan: one call per episode, each enqueues "
-              f"{fused_inner_scan.kernels_per_step()} device kernels per inner step)")
+              f"{fused_inner_scan.kernels_per_step(torch.bfloat16)} device kernels per inner step)")
         for row in rows:
             row["launches"] = counts[row["name"]]
             if row["launches"] == 0:

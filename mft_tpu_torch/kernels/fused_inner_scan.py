@@ -2,7 +2,9 @@
 
 Port of the TPU kernel ``mft_tpu/ops/pallas/fused_inner_scan.py``
 (``fused_inner_scan_lanes``) as hand-written CUDA kernels
-(``csrc/fused_inner_scan.cu``, which documents the design and the bound).
+(``csrc/fused_inner_scan.cu``, which documents the design and the bound):
+with a bf16 bank the seven products of a step run on the tensor cores
+(``wgmma``), with an f32 bank as f32 FMAs.
 One call runs, per episode lane, every minibatch step of the GNN member's
 eval-time fine-tune on the device: gather ``B`` rows of the frozen-trunk
 feature bank, forward of the final residual block (conv1 3x3 + masked
@@ -20,7 +22,9 @@ channels-last ``[span, H, H, Ci]``.  :func:`block_to_flat` /
 * On CUDA tensors :func:`fused_inner_scan_lanes`, :func:`fused_inner_scan`
   and :func:`fused_step_grads` launch the kernels or raise; they never fall
   back.  ``LAUNCHES`` counts one per call of the scan entry point (which
-  enqueues ``kernels_per_step() * T * L`` device kernels from a C loop).
+  enqueues ``kernels_per_step(bank.dtype) * T * L`` device kernels from a C
+  loop).  :func:`fused_product` runs one of the seven products alone, by
+  the route the scan takes for the operands' dtype, for checks and times.
 * On CPU tensors they compute the plain version below
   (:func:`step_grads_reference`, :func:`adam_update_reference`,
   :func:`fused_inner_scan_reference`), which repeats the JAX step math line
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -48,8 +53,13 @@ _ADAM_EPS = 1e-8
 
 #: calls of the scan entry point that launched the CUDA kernels (read by chip_smoke.py)
 LAUNCHES = 0
+#: host seconds the last scan call spent inside the C entry point (enqueue only, no synchronise)
+LAST_ENQUEUE_SECONDS = 0.0
 
 PKEYS = ("conv1", "bn1_s", "bn1_b", "conv2", "bn2_s", "bn2_b", "conv_sc", "bnsc_s", "bnsc_b")
+#: the seven products of a step, in the C entry point's numbering: the three
+#: forward convs, conv2's input gradient, the three weight gradients
+PRODUCTS = ("conv1", "conv_sc", "conv2", "conv2_dx", "conv1_dw", "conv2_dw", "conv_sc_dw")
 
 
 class BlockGeom(NamedTuple):
@@ -188,6 +198,23 @@ def _bn_bwd(dy, xhat, inv, scale, wcol, count):
     return (dxhat - m1 - xhat * m2) * inv * wcol, dscale, dbias
 
 
+def _product(which: str, wmat, x, dy, geom: BlockGeom) -> torch.Tensor:
+    """One of :data:`PRODUCTS` on compute-dtype operands, f32 out: ``wmat``
+    the product's weight matrix, ``x [B, h, h, C]`` its (gathered)
+    activations, ``dy [R, Co]`` the gradient entering it (each None where the
+    product has no such operand)."""
+    if which == "conv_sc" or which == "conv_sc_dw":
+        span = geom.stride * geom.h_out
+        xs = x[:, 0:span : geom.stride, 0:span : geom.stride, :].reshape(geom.rows, geom.c_in)
+        return _mm(xs, wmat) if which == "conv_sc" else _mm(xs.t(), dy)
+    if which == "conv2_dx":
+        return _conv3x3_dx_s1(dy, wmat, geom.batch, geom.h_out, geom.c_out).reshape(geom.rows, geom.c_out)
+    pieces = _patches3x3(_pad_hw(x), geom.stride if which.startswith("conv1") else 1)
+    if which.endswith("_dw"):
+        return _conv3x3_dw(pieces, dy)
+    return _conv3x3_fwd(pieces, wmat, x.shape[-1])
+
+
 def step_grads_reference(p: dict, x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, geom: BlockGeom):
     """Forward and hand-derived backward of the final block on one minibatch.
 
@@ -195,6 +222,21 @@ def step_grads_reference(p: dict, x: torch.Tensor, labels: torch.Tensor, w: torc
     gathered bank rows in the compute dtype; ``labels [B]`` int; ``w [B]``
     f32 row weights (0 for a padded row).  Returns ``(grads, loss)`` with
     f32 gradients shaped like ``p``."""
+    grads, loss, _ = _step(p, x, labels, w, geom)
+    return grads, loss
+
+
+def step_products_reference(p: dict, x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, geom: BlockGeom) -> dict:
+    """The seven products of the plain step (arguments as
+    :func:`step_grads_reference`): ``{which: {"w": weight matrix or None,
+    "x": activations or None, "dy": incoming gradient or None, "out": f32}}``
+    with the operands in the compute dtype as the step hands them to the
+    product and ``out`` as the step goes on with it, before any rounding."""
+    return _step(p, x, labels, w, geom)[2]
+
+
+def _step(p: dict, x: torch.Tensor, labels: torch.Tensor, w: torch.Tensor, geom: BlockGeom):
+    """The plain step: ``(grads, loss, products)``."""
     b, ho, co, ci = geom.batch, geom.h_out, geom.c_out, geom.c_in
     r, hw = geom.rows, geom.h_out * geom.h_out
     cd = x.dtype
@@ -206,19 +248,21 @@ def step_grads_reference(p: dict, x: torch.Tensor, labels: torch.Tensor, w: torc
     w1, w2, wsc = p["conv1"].to(cd), p["conv2"].to(cd), p["conv_sc"].to(cd)
 
     # ---- forward
-    xp = _pad_hw(x)
-    a1 = _patches3x3(xp, geom.stride)
-    y1 = rnd(_conv3x3_fwd(a1, w1, ci))
+    prods = {}
+
+    def product(which, wmat, xin, dy):
+        out = _product(which, wmat, xin, dy, geom)
+        prods[which] = {"w": wmat, "x": xin, "dy": dy, "out": out}
+        return out
+
+    y1 = rnd(product("conv1", w1, x, None))
     h1, xhat1, inv1 = _bn_fwd(y1, p["bn1_s"], p["bn1_b"], wcol, count)
     z1c = torch.relu(h1).to(cd).reshape(b, ho, ho, co)
 
-    a2 = _patches3x3(_pad_hw(z1c), 1)
-    y2 = rnd(_conv3x3_fwd(a2, w2, co))
+    y2 = rnd(product("conv2", w2, z1c, None))
     h2, xhat2, inv2 = _bn_fwd(y2, p["bn2_s"], p["bn2_b"], wcol, count)
 
-    span = geom.stride * ho
-    xs = x[:, 0:span : geom.stride, 0:span : geom.stride, :].reshape(r, ci)
-    ys = rnd(_mm(xs, wsc))
+    ys = rnd(product("conv_sc", wsc, x, None))
     hs, xhats, invs = _bn_fwd(ys, p["bnsc_s"], p["bnsc_b"], wcol, count)
 
     pre = h2 + hs
@@ -244,16 +288,16 @@ def step_grads_reference(p: dict, x: torch.Tensor, labels: torch.Tensor, w: torc
     dys, dgs, dbs = _bn_bwd(dpre, xhats, invs, p["bnsc_s"], wcol, count)
 
     dy2c = dy2.to(cd)
-    dw2 = _conv3x3_dw(a2, dy2c)
-    dz1 = _conv3x3_dx_s1(dy2c, w2, b, ho, co).reshape(r, co)
+    dw2 = product("conv2_dw", None, z1c, dy2c)
+    dz1 = product("conv2_dx", w2, None, dy2c)
     dh1 = torch.where(h1 > 0.0, dz1, torch.zeros_like(dz1))
     dy1, dg1, db1 = _bn_bwd(dh1, xhat1, inv1, p["bn1_s"], wcol, count)
-    dw1 = _conv3x3_dw(a1, dy1.to(cd))
-    dwsc = _mm(xs.t(), dys.to(cd))
+    dw1 = product("conv1_dw", None, x, dy1.to(cd))
+    dwsc = product("conv_sc_dw", None, x, dys.to(cd))
 
     grads = {"conv1": dw1, "bn1_s": dg1[None, :], "bn1_b": db1[None, :], "conv2": dw2, "bn2_s": dg2[None, :],
              "bn2_b": db2[None, :], "conv_sc": dwsc, "bnsc_s": dgs[None, :], "bnsc_b": dbs[None, :]}
-    return grads, loss
+    return grads, loss, prods
 
 
 def bias_corrections(t: int, b1: float = 0.9, b2: float = 0.999):
@@ -309,9 +353,9 @@ def _lib():
     lib = load("fused_inner_scan")
     if not getattr(lib, "_mft_bound", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fused_inner_scan_scratch_bytes.argtypes = _GEOM_ARGS
+        lib.fused_inner_scan_scratch_bytes.argtypes = _GEOM_ARGS + [ci]  # geom, tensor-core route
         lib.fused_inner_scan_scratch_bytes.restype = ctypes.c_size_t
-        lib.fused_inner_scan_kernels_per_step.argtypes = []
+        lib.fused_inner_scan_kernels_per_step.argtypes = [ci]  # bank_is_bf16
         lib.fused_inner_scan_kernels_per_step.restype = ci
         for sfx in _CARRY.values():
             scan = getattr(lib, f"fused_inner_scan_{sfx}")
@@ -319,16 +363,32 @@ def _lib():
             scan.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci, ci] + _GEOM_ARGS + [cf, vp]
             scan.restype = ci
             grads = getattr(lib, f"fused_step_grads_{sfx}")
-            # p, bank, bank_is_bf16, bank_y, idx_t, w_t, scratch, grads_out, loss_out, span, geom, stream
-            grads.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci] + _GEOM_ARGS + [vp]
+            # p, bank, bank_is_bf16, bank_y, idx_t, w_t, scratch, grads_out, loss_out, span, geom, route, stream
+            grads.argtypes = [vp, vp, ci, vp, vp, vp, vp, vp, vp, ci] + _GEOM_ARGS + [ci, vp]
             grads.restype = ci
+        # which, W, X, DY, out, scratch, is_bf16, route, geom, stream
+        lib.fused_inner_scan_product.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci] + _GEOM_ARGS + [vp]
+        lib.fused_inner_scan_product.restype = ci
         lib._mft_bound = True
     return lib
 
 
-def kernels_per_step() -> int:
-    """Device kernels the C loop enqueues per inner step (builds the library)."""
-    return int(_lib().fused_inner_scan_kernels_per_step())
+def kernels_per_step(bank_dtype: torch.dtype = torch.bfloat16) -> int:
+    """Device kernels the C loop enqueues per inner step for a bank of this
+    dtype (builds the library)."""
+    return int(_lib().fused_inner_scan_kernels_per_step(int(bank_dtype == torch.bfloat16)))
+
+
+_ROUTES = {None: 0, "fma": 1}
+
+
+def _route(route) -> int:
+    """The C entry points' route number: None = the scan's own (tensor cores
+    for bf16 operands, f32 FMAs for f32), "fma" = the FMA products whatever
+    the dtype.  Explicit, for checks; the scan has no such argument."""
+    if route not in _ROUTES:
+        raise ValueError(f"route must be None or 'fma', got {route!r}")
+    return _ROUTES[route]
 
 
 def _check_inputs(p0, bank, bank_y, idx, w, geom: BlockGeom, lanes):
@@ -384,18 +444,19 @@ def _unpack(flat: torch.Tensor, geom: BlockGeom, lead: tuple) -> dict:
     return {k: part.reshape(lead + shapes[k]) for k, part in zip(PKEYS, parts)}
 
 
-def _scratch(lib, geom: BlockGeom, dev) -> torch.Tensor:
-    """The one scratch buffer of a call; the library sizes it, and answers 0
-    for a geometry its kernels do not take."""
-    nbytes = int(lib.fused_inner_scan_scratch_bytes(*geom))
+def _scratch(lib, geom: BlockGeom, dev, tensor_cores: bool) -> torch.Tensor:
+    """The one scratch buffer of a call; the library sizes it for the
+    products' route, and answers 0 for a geometry its kernels do not take."""
+    nbytes = int(lib.fused_inner_scan_scratch_bytes(*geom, int(tensor_cores)))
     if nbytes == 0:
         raise ValueError(f"the fused inner-scan kernels do not take {geom}: stride 1 or 2 dividing h_in <= 255, "
-                         "c_in and c_out multiples of 16, at most 1024 rows (batch*h_out^2)")
+                         "c_in and c_out multiples of 16 (for a bfloat16 bank, whose products run on the tensor "
+                         "cores: c_in a multiple of 64, c_out of 128), at most 1024 rows (batch*h_out^2)")
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def _launch_scan(p0, fmap_banks, bank_y, idx, w, geom: BlockGeom, lr: float) -> dict:
-    global LAUNCHES
+    global LAUNCHES, LAST_ENQUEUE_SECONDS
     if idx.dim() != 3:
         raise ValueError(f"idx must be [L, T, {geom.batch}], got {tuple(idx.shape)}")
     lanes = idx.shape[0]
@@ -405,15 +466,17 @@ def _launch_scan(p0, fmap_banks, bank_y, idx, w, geom: BlockGeom, lr: float) -> 
         return {k: v.clone() for k, v in p0.items()}
     lib = _lib()
     state = _pack(p0, (lanes,))  # updated in place by the kernels
-    scratch = _scratch(lib, geom, dev)
+    scratch = _scratch(lib, geom, dev, fmap_banks.dtype == torch.bfloat16)
     y32 = bank_y.to(torch.int32).contiguous()
     idx32 = idx.to(torch.int32).contiguous()
     w32 = w.to(torch.float32).contiguous()
     fn = getattr(lib, f"fused_inner_scan_{_CARRY[dt]}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
+    t0 = time.perf_counter()
     err = fn(state.data_ptr(), fmap_banks.data_ptr(), int(fmap_banks.dtype == torch.bfloat16), y32.data_ptr(),
              idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), lanes, n_steps, span, *geom, float(lr), stream)
+    LAST_ENQUEUE_SECONDS = time.perf_counter() - t0
     if err != 0:
         raise RuntimeError(f"fused_inner_scan_{_CARRY[dt]} launch failed: cudaError {err}")
     # the stream orders the kernels before any later use or reuse of these buffers
@@ -444,11 +507,14 @@ def fused_inner_scan(p0, fmap_bank, bank_y, idx, w, *, geom: BlockGeom, lr: floa
     return {k: v[0] for k, v in out.items()}
 
 
-def fused_step_grads(p, fmap_bank, bank_y, idx_t, w_t, *, geom: BlockGeom):
+def fused_step_grads(p, fmap_bank, bank_y, idx_t, w_t, *, geom: BlockGeom, route=None):
     """One forward and backward without the Adam update, for checks:
     ``(grads, loss)`` of the minibatch ``idx_t [B]`` / ``w_t [B]`` of the
     bank ``[span, H, H, Ci]`` at the flat parameters ``p`` (carry dtype).
-    CUDA tensors go through the same device kernels as the scan."""
+    CUDA tensors go through the same device kernels as the scan;
+    ``route="fma"`` runs the f32 FMA products on them whatever the bank's
+    dtype (a bf16 bank otherwise takes the tensor cores)."""
+    rt = _route(route)
     if fmap_bank.device.type == "cpu":
         idx_t = idx_t.long()
         return step_grads_reference({k: v.float() for k, v in p.items()}, fmap_bank[idx_t], bank_y[idx_t], w_t, geom)
@@ -457,12 +523,65 @@ def fused_step_grads(p, fmap_bank, bank_y, idx_t, w_t, *, geom: BlockGeom):
     flat = _pack(p, ())
     grads = torch.empty(flat.shape, dtype=torch.float32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    scratch = _scratch(lib, geom, dev)
+    bank_bf16 = fmap_bank.dtype == torch.bfloat16
+    scratch = _scratch(lib, geom, dev, bank_bf16 and rt == 0)
     y32, idx32, w32 = bank_y.to(torch.int32).contiguous(), idx_t.to(torch.int32).contiguous(), w_t.float().contiguous()
     fn = getattr(lib, f"fused_step_grads_{_CARRY[dt]}")
-    err = fn(flat.data_ptr(), fmap_bank.data_ptr(), int(fmap_bank.dtype == torch.bfloat16), y32.data_ptr(),
+    err = fn(flat.data_ptr(), fmap_bank.data_ptr(), int(bank_bf16), y32.data_ptr(),
              idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), grads.data_ptr(), loss.data_ptr(),
-             fmap_bank.shape[0], *geom, torch.cuda.current_stream(dev).cuda_stream)
+             fmap_bank.shape[0], *geom, rt, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_step_grads_{_CARRY[dt]} launch failed: cudaError {err}")
     return _unpack(grads, geom, ()), loss
+
+
+def product_shapes(which: str, geom: BlockGeom) -> dict:
+    """Shapes of one product's operands and output (None: no such operand)."""
+    r, ci, co, b = geom.rows, geom.c_in, geom.c_out, geom.batch
+    x_in, x_mid = (b, geom.h_in, geom.h_in, ci), (b, geom.h_out, geom.h_out, co)
+    return {
+        "conv1": {"w": (9 * ci, co), "x": x_in, "dy": None, "out": (r, co)},
+        "conv_sc": {"w": (ci, co), "x": x_in, "dy": None, "out": (r, co)},
+        "conv2": {"w": (9 * co, co), "x": x_mid, "dy": None, "out": (r, co)},
+        "conv2_dx": {"w": (9 * co, co), "x": None, "dy": (r, co), "out": (r, co)},
+        "conv1_dw": {"w": None, "x": x_in, "dy": (r, co), "out": (9 * ci, co)},
+        "conv2_dw": {"w": None, "x": x_mid, "dy": (r, co), "out": (9 * co, co)},
+        "conv_sc_dw": {"w": None, "x": x_in, "dy": (r, co), "out": (ci, co)},
+    }[which]
+
+
+def fused_product(which: str, wmat, x, dy, geom: BlockGeom, route=None) -> torch.Tensor:
+    """One of the seven products of a step (:data:`PRODUCTS`) alone, for
+    checks and times: ``wmat`` the product's weight matrix, ``x`` its
+    gathered activations, ``dy`` the gradient entering it (None where
+    :func:`product_shapes` says so), all in the compute dtype (bf16 or f32);
+    f32 out.  CUDA tensors take the kernel the scan would take for that
+    dtype (``route="fma"``: the FMA kernel) or raise; CPU tensors the plain
+    product."""
+    rt = _route(route)
+    if which not in PRODUCTS:
+        raise ValueError(f"which must be one of {PRODUCTS}, got {which!r}")
+    shapes = product_shapes(which, geom)
+    given = {"w": wmat, "x": x, "dy": dy}
+    ops = [t for k, t in given.items() if shapes[k] is not None]
+    for k, t in given.items():
+        if (shapes[k] is None) != (t is None) or (t is not None and tuple(t.shape) != shapes[k]):
+            raise ValueError(f"{which}: operand {k!r} must be {shapes[k]}, got {None if t is None else tuple(t.shape)}")
+    cd, dev = ops[0].dtype, ops[0].device
+    if cd not in _CARRY or any(t.dtype != cd or t.device != dev for t in ops):
+        raise TypeError(f"{which}: operands must share one dtype (bfloat16 or float32) and one device")
+    if dev.type == "cpu":
+        return _product(which, wmat, x, dy, geom)
+    if dev.type != "cuda" or not all(t.is_contiguous() for t in ops):
+        raise ValueError(f"{which}: expected contiguous CUDA (or CPU) tensors")
+    lib = _lib()
+    is_bf16 = cd == torch.bfloat16
+    out = torch.empty(shapes["out"], dtype=torch.float32, device=dev)
+    scratch = _scratch(lib, geom, dev, is_bf16 and rt == 0)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.fused_inner_scan_product(PRODUCTS.index(which), ptr(wmat), ptr(x), ptr(dy), out.data_ptr(),
+                                       scratch.data_ptr(), int(is_bf16), rt, *geom,
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_inner_scan_product({which}) launch failed: cudaError {err}")
+    return out

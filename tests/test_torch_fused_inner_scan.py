@@ -514,3 +514,147 @@ def test_cli_inner_scan_flag(tmp_path, capsys):
     assert p0["conv1"].dtype == torch.bfloat16 and bank.dtype == torch.bfloat16 and bank.shape == (100, 2, 2, 256)
     assert "2 Test Acc = " in capsys.readouterr().out
     assert len(res.accs) == 2 and all(np.isfinite(res.accs)) and all(0.0 <= a <= 100.0 for a in res.accs)
+
+
+# --------------------------------------------------------------------------
+# the seven products of a step, one by one
+# --------------------------------------------------------------------------
+
+#: small geometries for the per-product tests: a stride-2 and a stride-1 block
+PRODUCT_GEOMS = {"stride2": (6, 16, 32, 2, 3), "stride1": (4, 16, 32, 1, 3)}
+#: a product of f32 sums against the same convolution in f64, as a share of
+#: the output's largest value: the f32 summation error of at most 9*32 terms
+PRODUCT_F64_TOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _product_inputs(geom_id, cd_name):
+    """One plain step at a small geometry: (geom, p, x, labels, w, products, grads)."""
+    geom = tfis.BlockGeom(*PRODUCT_GEOMS[geom_id])
+    rs = np.random.RandomState(7)
+    shapes = tfis.param_shapes(geom)
+    p = {k: torch.from_numpy((rs.randn(*s) * (np.sqrt(2.0 / s[0]) if k.startswith("conv") else 0.1)
+                              + (1.0 if k.endswith("_s") else 0.0)).astype(np.float32)) for k, s in shapes.items()}
+    cd = getattr(torch, cd_name)
+    x = torch.from_numpy(rs.randn(geom.batch, geom.h_in, geom.h_in, geom.c_in).astype(np.float32)).to(cd)
+    labels = torch.from_numpy(rs.randint(0, 3, geom.batch))
+    w = torch.tensor([1.0] * (geom.batch - 1) + [0.0])
+    prods = tfis.step_products_reference(p, x, labels, w, geom)
+    grads, _ = tfis.step_grads_reference(p, x, labels, w, geom)
+    return geom, p, x, labels, w, prods, grads
+
+
+def _conv_f64(which, pr, geom):
+    """The product by ``torch.nn.functional.conv2d`` (and its autograd) in
+    f64 on the same operands, independent of the im2col form."""
+    first = which.startswith(("conv1", "conv_sc"))
+    k, pad = (1, 0) if which.startswith("conv_sc") else (3, 1)
+    cin, stride, hin = (geom.c_in, geom.stride, geom.h_in) if first else (geom.c_out, 1, geom.h_out)
+    co, b = geom.c_out, geom.batch
+    oihw = lambda m: m.double().reshape(k, k, cin, co).permute(3, 2, 0, 1)
+    rows = lambda t: t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])  # NCHW -> [rows, C]
+    w4 = (oihw(pr["w"]) if pr["w"] is not None else torch.zeros(co, cin, k, k, dtype=torch.float64)).requires_grad_()
+    x4 = (pr["x"].double().permute(0, 3, 1, 2) if pr["x"] is not None
+          else torch.zeros(b, cin, hin, hin, dtype=torch.float64)).requires_grad_()
+    y = torch.nn.functional.conv2d(x4, w4, stride=stride, padding=pad)
+    if pr["dy"] is None:
+        return rows(y).detach()
+    dy4 = pr["dy"].double().reshape(b, geom.h_out, geom.h_out, co).permute(0, 3, 1, 2)
+    gx, gw = torch.autograd.grad(y, (x4, w4), dy4)
+    return rows(gx) if which == "conv2_dx" else gw.permute(2, 3, 1, 0).reshape(k * k * cin, co)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("geom_id", list(PRODUCT_GEOMS))
+def test_step_products_recombine_to_step_grads(geom_id, cd):
+    """The three weight-gradient products ARE the step's conv gradients, bit
+    for bit, and every product has the shapes ``product_shapes`` names."""
+    geom, _, _, _, _, prods, grads = _product_inputs(geom_id, cd)
+    assert set(prods) == set(tfis.PRODUCTS)
+    for key, which in (("conv1", "conv1_dw"), ("conv2", "conv2_dw"), ("conv_sc", "conv_sc_dw")):
+        assert torch.equal(prods[which]["out"], grads[key]), which
+    for which, pr in prods.items():
+        shapes = tfis.product_shapes(which, geom)
+        assert pr["out"].dtype == torch.float32 and tuple(pr["out"].shape) == shapes["out"]
+        for k in ("w", "x", "dy"):
+            assert (pr[k] is None) == (shapes[k] is None), (which, k)
+            assert pr[k] is None or (tuple(pr[k].shape) == shapes[k] and pr[k].dtype == getattr(torch, cd))
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", tfis.PRODUCTS)
+def test_products_match_f64_conv(which, cd):
+    for geom_id in PRODUCT_GEOMS:
+        geom, _, _, _, _, prods, _ = _product_inputs(geom_id, cd)
+        want = _conv_f64(which, prods[which], geom)
+        err = float((prods[which]["out"].double() - want).abs().max() / want.abs().max())
+        assert err <= PRODUCT_F64_TOL, (which, geom_id, err)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", tfis.PRODUCTS)
+def test_fused_product_on_cpu_is_the_plain_product(which, cd):
+    geom, _, _, _, _, prods, _ = _product_inputs("stride2", cd)
+    pr = prods[which]
+    before = tfis.LAUNCHES
+    got = tfis.fused_product(which, pr["w"], pr["x"], pr["dy"], geom)
+    fma = tfis.fused_product(which, pr["w"], pr["x"], pr["dy"], geom, route="fma")
+    assert tfis.LAUNCHES == before
+    assert got.dtype == torch.float32 and torch.equal(got, pr["out"]) and torch.equal(fma, pr["out"])
+
+
+@pytest.mark.parametrize("key,which", [("conv1", "conv1_dw"), ("conv2", "conv2_dw"), ("conv_sc", "conv_sc_dw")])
+def test_weight_gradient_products_match_jax(key, which):
+    """The weight-gradient products of the plain step against JAX's
+    ``_step_grads``, at the one-step tolerance of the module docstring."""
+    flat, fmap, bank_y, idx, w = _setup()
+    want, _ = _jax_step_grads(flat, fmap, bank_y, idx[2], w[2])
+    p, bank, y, ti, tw = _torch_inputs()
+    prods = tfis.step_products_reference(p, bank[ti[2].long()], y[ti[2].long()], tw[2], TGEOM)
+    np.testing.assert_allclose(_np(prods[which]["out"]), np.asarray(want[key]), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("geom_id", list(PRODUCT_GEOMS))
+def test_centre_tap_is_the_shortcut_pixel(geom_id):
+    """Tap (1, 1) of the 3x3 pad-1 stride-s window is pixel (s*oy, s*ox): the
+    rows the 1x1 stride-s shortcut reads, which is why one launch can hold
+    conv1 and the shortcut."""
+    geom, _, x, _, _, _, _ = _product_inputs(geom_id, "float32")
+    span = geom.stride * geom.h_out
+    xs = x[:, 0:span : geom.stride, 0:span : geom.stride, :].reshape(geom.rows, geom.c_in)
+    assert torch.equal(tfis._patches3x3(tfis._pad_hw(x), geom.stride)[4], xs)
+
+
+@pytest.mark.parametrize("beta", [0.9, 0.999])
+def test_bias_corrections_follow_the_kernels_f32_formula(beta):
+    """``1 - exp(t*log(b))`` in f32 steps, as the C loop computes it for the
+    Adam kernel, for every step of a 500-step scan: equal to the same
+    expression written out in numpy f32, and within a few f32 ulps of
+    ``1 - b**t`` in f64."""
+    log_b = np.float32(np.log(beta))
+    for t in range(1, 501):
+        got = tfis.bias_corrections(t)[0 if beta == 0.9 else 1]
+        mine = np.float32(1.0) - np.exp(np.float32(t) * log_b, dtype=np.float32)
+        assert got == float(mine)
+        np.testing.assert_allclose(got, 1.0 - beta**t, rtol=2e-4 if t < 5 and beta == 0.999 else 3e-5)
+
+
+def test_fused_product_refusals():
+    geom, _, _, _, _, prods, _ = _product_inputs("stride2", "float32")
+    pr = prods["conv2_dw"]
+    with pytest.raises(ValueError, match="which"):
+        tfis.fused_product("conv3", None, pr["x"], pr["dy"], geom)
+    with pytest.raises(ValueError, match="operand"):
+        tfis.fused_product("conv2_dw", prods["conv2"]["w"], pr["x"], pr["dy"], geom)  # a weight gradient takes no w
+    with pytest.raises(ValueError, match="operand"):
+        tfis.fused_product("conv2_dw", None, pr["x"][:, :1], pr["dy"], geom)
+    with pytest.raises(TypeError, match="dtype"):
+        tfis.fused_product("conv2_dw", None, pr["x"].bfloat16(), pr["dy"], geom)
+    with pytest.raises(ValueError, match="route"):
+        tfis.fused_product("conv2_dw", None, pr["x"], pr["dy"], geom, route="tensor_cores")
+    p, bank, y, ti, tw = _torch_inputs()
+    with pytest.raises(ValueError, match="route"):
+        tfis.fused_step_grads(p, bank, y, ti[1], tw[1], geom=TGEOM, route="auto")
+    want, _ = tfis.fused_step_grads(p, bank, y, ti[1], tw[1], geom=TGEOM)
+    got, _ = tfis.fused_step_grads(p, bank, y, ti[1], tw[1], geom=TGEOM, route="fma")  # on the CPU both are the plain version
+    assert all(torch.equal(got[k], want[k]) for k in tfis.PKEYS)
