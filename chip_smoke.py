@@ -148,15 +148,18 @@ def device_us(fn, iters: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(3):  # the first trace of a process can come back empty
         torch.cuda.synchronize()
-    out = {e.key: e.self_device_time_total / iters for e in prof.key_averages()
-           if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
-    if not out:
-        fail("the profiler recorded no device time for a kernel")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key: e.self_device_time_total / iters for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0}
+        if out:
+            break
+    else:
+        fail("the profiler recorded no device time for a kernel in three traces")
     out["total"] = sum(out.values())
     return out
 
@@ -701,7 +704,7 @@ def phase_profile(torch, finetune, argv, steady_s: float):
         fail("the profiler traced device kernels but not the edge kernel")
     print(f"profiler: edge kernel on the device timeline, {edge_us / 1e3:.4f} ms device time in one episode")
     scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAll", "bn_fwd_kernel", "bn_bwd_kernel",
-                    "pool_ce_kernel", "adam_kernel")
+                    "adam_kernel")
     scan_us = {sym: sum(e.self_device_time_total for e in on_device if sym in e.key) for sym in scan_symbols}
     if min(scan_us.values()) == 0:
         fail(f"the profiler traced device kernels but not every kernel of the fused scan: {scan_us}")

@@ -16,28 +16,29 @@
 // roofline, operations: a step is 4.75 GFLOP of products against 0.5 MB of
 // gathered bank rows, so 500 steps are bound by 2.4 ms at the bf16
 // tensor-core rate (H100 SXM, 989 TFLOP/s).  That bound is out of reach at
-// one lane: with 245 rows a step is a chain of ten dependent small kernels,
+// one lane: with 245 rows a step is a chain of nine dependent small kernels,
 // each a fraction of a wave on 132 SMs, that pass the lane's state (7.3 MB
-// of bf16 parameters, 14.7 MB of moments, 29 MB of f32 gradients) and the
+// of bf16 parameters, 14.7 MB of moments, 14.7 MB of f32 gradients) and the
 // split-K partial sums through L2.  What the design does about it: the seven
 // products run on the tensor cores from bf16 operands stored as bf16, every
 // pass over rows or parameters moves 16 bytes a thread on at least 128
 // blocks, and kernels that share inputs share a launch.
 //
-// A step with a bf16 bank (the tensor-core route), 10 kernels:
+// A step with a bf16 bank (the tensor-core route), 9 kernels:
 //   1  conv_mma<0, TagConv1ScFwd>  conv1 and the 1x1 shortcut conv (the
 //                                  shortcut as one more blockIdx.z slice)
 //   2  bn_fwd<1>                   BN1 + ReLU -> z1 (bf16), xhat1, inv1
 //   3  conv_mma<0, TagConv2Fwd>    conv2
-//   4  bn_fwd<2>                   BN2 and the shortcut's BN, added -> pre
-//   5  pool_ce                     ReLU + average pool + softmax CE + dlogits
-//   6  bn_bwd<0>                   pool/ReLU backward, BN2 and shortcut-BN
-//                                  backward -> dy2, dys (bf16)
-//   7  conv_mma<1, TagConv2Dx>     conv2's input gradient as a gather
+//   4  bn_fwd<2>                   BN2 and the shortcut's BN, added -> pre;
+//                                  ReLU + average pool -> logits
+//   5  bn_bwd<0>                   softmax CE of the logits, pool/ReLU
+//                                  backward, BN2 and shortcut-BN backward
+//                                  -> dy2, dys (bf16)
+//   6  conv_mma<1, TagConv2Dx>     conv2's input gradient as a gather
 //                                  (flipped taps): no scatter, fixed order
-//   8  bn_bwd<1>                   ReLU + BN1 backward -> dy1 (bf16)
-//   9  wgrad_mma<TagDwAll>         the three weight gradients, one grid
-//   10 adam                        one pass over all nine tensors, 8
+//   7  bn_bwd<1>                   ReLU + BN1 backward -> dy1 (bf16)
+//   8  wgrad_mma<TagDwAll>         the three weight gradients, one grid
+//   9  adam                        one pass over all nine tensors, 8
 //                                  elements (16-byte accesses) a thread
 // The products are warpgroup wgmma.mma_async m64n128k16 (bf16 in, f32
 // accumulators in registers), both operands from shared memory in the
@@ -54,7 +55,7 @@
 // the Adam kernel writes beside the f32 parameters.
 //
 // An f32 bank (the strict-parity path) keeps the f32 FMA products on the CUDA
-// cores (64 x 64 tiles, 4 x 4 a thread; no TF32), 13 kernels a step, with the
+// cores (64 x 64 tiles, 4 x 4 a thread; no TF32), 12 kernels a step, with the
 // same BN, loss and Adam kernels.  fused_step_grads_* and
 // fused_inner_scan_product take a route argument (1 = FMA) so that a check
 // can run the FMA products on bf16 operands; the scan has none.
@@ -675,7 +676,7 @@ __device__ __forceinline__ float4 bn_affine4(float4 x, float4 s, float4 b) {
 // Sum over the block's THREADS threads of four values each, in a fixed order
 // (a shuffle tree within each warp, then the warps in turn); every thread
 // gets the same totals.
-__device__ __forceinline__ float4 block_sum4(float4 v, float4* red) {
+__device__ __forceinline__ float4 warp_sum4(float4 v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
@@ -683,6 +684,11 @@ __device__ __forceinline__ float4 block_sum4(float4 v, float4* red) {
     v.z += __shfl_xor_sync(0xffffffffu, v.z, o);
     v.w += __shfl_xor_sync(0xffffffffu, v.w, o);
   }
+  return v;
+}
+
+__device__ __forceinline__ float4 block_sum4(float4 v, float4* red) {
+  v = warp_sum4(v);
   __syncthreads();  // the previous use of red is over
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
@@ -710,13 +716,15 @@ struct BnFwdJob {
 // Masked batch-stats BN forward; a block owns BN_CH channels (16-byte
 // accesses along C) and a thread up to BN_RPT rows, which stay in registers
 // over the three passes.  NJ = 1: act = round_cd(relu(h)), the next conv's
-// input.  NJ = 2: pre = h of j0 + h of j1, the block's pre-activation.
-// Grid: C / BN_CH.
+// input.  NJ = 2: pre = h of j0 + h of j1, the block's pre-activation, and
+// logits[b, c] = round_cd(mean over sample b's hw pixels of relu(pre)), the
+// pooled features.  Grid: C / BN_CH.
 template <typename WT, bool CD_BF16, int NJ>
 __global__ void __launch_bounds__(THREADS)
 bn_fwd_kernel(BnFwdJob<WT> j0, BnFwdJob<WT> j1, const float* __restrict__ w_t, int batch, int hw, int C,
-              typename Act<CD_BF16>::type* __restrict__ act, float* __restrict__ pre) {
+              typename Act<CD_BF16>::type* __restrict__ act, float* __restrict__ pre, float* __restrict__ logits) {
   __shared__ float4 red[THREADS / 32];
+  __shared__ float4 pool[NJ == 2 ? MAX_ROWS : 1];
   const int c = blockIdx.x * BN_CH, tid = threadIdx.x;
   const int R = batch * hw;
   const size_t RC = static_cast<size_t>(R) * C;
@@ -768,63 +776,22 @@ bn_fwd_kernel(BnFwdJob<WT> j0, BnFwdJob<WT> j1, const float* __restrict__ w_t, i
         st4(act, at, round_cd4<CD_BF16>(make_float4(fmaxf(h.x, 0.f), fmaxf(h.y, 0.f), fmaxf(h.z, 0.f), fmaxf(h.w, 0.f))));
       } else {
         hsum[i] = jj == 0 ? h : hsum[i] + h;
-        if (jj == NJ - 1) st4(pre, at, hsum[i]);
+        if (jj == NJ - 1) {
+          st4(pre, at, hsum[i]);
+          pool[r] = make_float4(fmaxf(hsum[i].x, 0.f), fmaxf(hsum[i].y, 0.f), fmaxf(hsum[i].z, 0.f), fmaxf(hsum[i].w, 0.f));
+        }
       }
     }
   }
-}
-
-__device__ __forceinline__ float block_reduce(float v, float* red, bool is_max) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = is_max ? fmaxf(v, u) : v + u;
+  if constexpr (NJ == 2) {
+    __syncthreads();
+    for (int b = tid / 32; b < batch; b += THREADS / 32) {  // a warp per sample, a fixed shuffle tree
+      float4 sum = f4(0.f);
+      for (int p = tid % 32; p < hw; p += 32) sum = sum + pool[b * hw + p];
+      sum = warp_sum4(sum);
+      if (tid % 32 == 0) st4(logits, static_cast<size_t>(b) * C + c, round_cd4<CD_BF16>(sum / static_cast<float>(hw)));
+    }
   }
-  __syncthreads();  // the previous use of red is over
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = red[0];
-  for (int i = 1; i < THREADS / 32; ++i) t = is_max ? fmaxf(t, red[i]) : t + red[i];
-  return t;
-}
-
-// One block per sample b: logits = round_cd(mean over the hw pixels of
-// relu(pre)), softmax CE against label bank_y[idx_t[b]] (a label outside
-// [0, C) has an all-zero one-hot), dlogits = (softmax - onehot) * w_b / denom,
-// ce[b] = (lse - logit_y) * w_b.  Dynamic shared memory: 2*C floats.
-template <bool CD_BF16>
-__global__ void __launch_bounds__(THREADS)
-pool_ce_kernel(const float* __restrict__ pre, const int* __restrict__ bank_y, const int* __restrict__ idx_t,
-               const float* __restrict__ w_t, int batch, int hw, int C, float* __restrict__ dlogits,
-               float* __restrict__ ce) {
-  extern __shared__ float sm[];
-  __shared__ float red[THREADS / 32];
-  float* logit = sm;
-  float* ez = sm + C;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const float* pb = pre + static_cast<size_t>(b) * hw * C;
-  float zmax = -INFINITY;
-  for (int c = tid; c < C; c += THREADS) {
-    float s = 0.f;
-    for (int j = 0; j < hw; ++j) s += fmaxf(pb[static_cast<size_t>(j) * C + c], 0.f);
-    const float f = round_cd<CD_BF16>(s / static_cast<float>(hw));
-    logit[c] = f;
-    zmax = fmaxf(zmax, f);
-  }
-  zmax = block_reduce(zmax, red, true);
-  float se = 0.f;
-  for (int c = tid; c < C; c += THREADS) {
-    const float e = expf(logit[c] - zmax);
-    ez[c] = e;
-    se += e;
-  }
-  se = block_reduce(se, red, false);
-  const float denom = fmaxf(weight_sum(w_t, batch), 1.0f);
-  const float wb = w_t[b];
-  const int y = bank_y[idx_t[b]];
-  const float coef = wb / denom;
-  for (int c = tid; c < C; c += THREADS)
-    dlogits[static_cast<size_t>(b) * C + c] = (ez[c] / se - (c == y ? 1.0f : 0.0f)) * coef;
-  if (tid == 0) ce[b] = (logf(se) + zmax - ((y >= 0 && y < C) ? logit[y] : 0.f)) * wb;
 }
 
 __global__ void loss_kernel(const float* __restrict__ ce, const float* __restrict__ w_t, int batch,
@@ -845,23 +812,59 @@ struct BnBwdJob {
   float *dscale, *dbias;
 };
 
+// What MODE 0 of bn_bwd_kernel needs for the loss: the pooled features as
+// logits [B, C], the labels bank_y[idx_t[b]], and where ce[b] goes.
+struct CeArgs {
+  const float* logits;
+  const int *bank_y, *idx_t;
+  float* ce;
+};
+
 // Masked BN backward, cut like bn_fwd_kernel.  The incoming gradient g [R, C] is
-//   MODE 0: mask[r, c] > 0 ? src[(r / hw), c] / hw : 0   (pool + ReLU backward;
-//           src = dlogits [B, C], mask = the pre-activation), shared by the
-//           two BNs j0 and j1 that were added into it
+//   MODE 0: pre[r, c] > 0 ? dlogits[r / hw, c] / hw : 0   (pool + ReLU
+//           backward), shared by the two BNs j0 and j1 that were added into
+//           pre.  dlogits is the masked softmax CE's gradient, computed here:
+//           every block takes the softmax statistics of all batch samples
+//           over the C logits (the same arithmetic in every block), then
+//           dlogits[b, c] = (softmax - onehot) * w_b / denom for its own
+//           channels; a label outside [0, C) has an all-zero one-hot.  Block
+//           0 writes ce[b] = (lse - logit_y) * w_b.
 //   MODE 1: h > 0 ? sum_s src[s][r, c] : 0 with h = xhat*scale + bias
 //           (ReLU backward of j0's own output; src = split partial sums)
 // Grid: C / BN_CH.
 template <typename WT, bool CD_BF16, int MODE>
 __global__ void __launch_bounds__(THREADS)
-bn_bwd_kernel(const float* __restrict__ src, int S, const float* __restrict__ mask,
+bn_bwd_kernel(const float* __restrict__ src, int S, const float* __restrict__ pre, CeArgs ce,
               BnBwdJob<WT, typename Act<CD_BF16>::type> j0, BnBwdJob<WT, typename Act<CD_BF16>::type> j1,
               const float* __restrict__ w_t, int batch, int hw, int C) {
   __shared__ float4 red[THREADS / 32];
+  __shared__ float zmax_s[MODE == 0 ? MAX_ROWS : 1], se_s[MODE == 0 ? MAX_ROWS : 1];
   const int c = blockIdx.x * BN_CH, tid = threadIdx.x;
   const int R = batch * hw;
   const size_t RC = static_cast<size_t>(R) * C;
-  const float count = fmaxf(weight_sum(w_t, batch), 1e-6f) * static_cast<float>(hw);
+  const float wsum = weight_sum(w_t, batch);
+  const float count = fmaxf(wsum, 1e-6f) * static_cast<float>(hw);
+  if constexpr (MODE == 0) {
+    for (int b = tid / 32; b < batch; b += THREADS / 32) {  // a warp per sample, fixed shuffle trees
+      const float* lg = ce.logits + static_cast<size_t>(b) * C;
+      float zmax = -INFINITY;
+      for (int k = tid % 32; k < C; k += 32) zmax = fmaxf(zmax, lg[k]);
+      for (int o = 16; o > 0; o >>= 1) zmax = fmaxf(zmax, __shfl_xor_sync(0xffffffffu, zmax, o));
+      float se = 0.f;
+      for (int k = tid % 32; k < C; k += 32) se += expf(lg[k] - zmax);
+      for (int o = 16; o > 0; o >>= 1) se += __shfl_xor_sync(0xffffffffu, se, o);
+      if (tid % 32 == 0) {
+        zmax_s[b] = zmax;
+        se_s[b] = se;
+        if (blockIdx.x == 0) {
+          const int y = ce.bank_y[ce.idx_t[b]];
+          ce.ce[b] = (logf(se) + zmax - ((y >= 0 && y < C) ? lg[y] : 0.f)) * w_t[b];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const float denom = fmaxf(wsum, 1.0f);
   float wr[BN_RPT];
   float4 gv[BN_RPT];
 #pragma unroll
@@ -870,8 +873,15 @@ bn_bwd_kernel(const float* __restrict__ src, int S, const float* __restrict__ ma
     wr[i] = r < R ? w_t[r / hw] : 0.f;
     gv[i] = f4(0.f);
     if (MODE == 0 && r < R) {
-      const float4 m = ld4(mask, static_cast<size_t>(r) * C + c);
-      const float4 d = ld4(src, static_cast<size_t>(r / hw) * C + c) / static_cast<float>(hw);
+      const int b = r / hw;
+      const float4 m = ld4(pre, static_cast<size_t>(r) * C + c);
+      const float4 lg = ld4(ce.logits, static_cast<size_t>(b) * C + c);
+      const int y = ce.bank_y[ce.idx_t[b]] - c;  // the label's place among this block's channels
+      const float zmax = zmax_s[b], se = se_s[b], coef = wr[i] / denom, fhw = static_cast<float>(hw);
+      const float4 d = make_float4((expf(lg.x - zmax) / se - (y == 0 ? 1.0f : 0.0f)) * coef / fhw,
+                                   (expf(lg.y - zmax) / se - (y == 1 ? 1.0f : 0.0f)) * coef / fhw,
+                                   (expf(lg.z - zmax) / se - (y == 2 ? 1.0f : 0.0f)) * coef / fhw,
+                                   (expf(lg.w - zmax) / se - (y == 3 ? 1.0f : 0.0f)) * coef / fhw);
       gv[i] = make_float4(m.x > 0.f ? d.x : 0.f, m.y > 0.f ? d.y : 0.f, m.z > 0.f ? d.z : 0.f, m.w > 0.f ? d.w : 0.f);
     }
   }
@@ -1057,7 +1067,7 @@ ParamOffsets param_offsets(const Geom& g) {
 
 // byte offsets into the caller's scratch buffer
 struct Scratch {
-  size_t mu, nu, grads, shadow, part, part_sc, xhat1, z1, xhat2, xhats, pre, dy2, dys, dy1, inv1, inv2, invs, dlogits,
+  size_t mu, nu, grads, shadow, part, part_sc, xhat1, z1, xhat2, xhats, pre, dy2, dys, dy1, inv1, inv2, invs, logits,
       ce, total;
   int chunk1, chunk2, splits1, splits2;
 };
@@ -1091,7 +1101,7 @@ Scratch make_scratch(const Geom& g, bool mma) {
   s.xhat1 = take(rc), s.z1 = take(rc), s.xhat2 = take(rc), s.xhats = take(rc), s.pre = take(rc);
   s.dy2 = take(rc), s.dys = take(rc), s.dy1 = take(rc);
   s.inv1 = take(g.c_out * sizeof(float)), s.inv2 = take(g.c_out * sizeof(float)), s.invs = take(g.c_out * sizeof(float));
-  s.dlogits = take(static_cast<size_t>(g.batch) * g.c_out * sizeof(float));
+  s.logits = take(static_cast<size_t>(g.batch) * g.c_out * sizeof(float));
   s.ce = take(g.batch * sizeof(float));
   s.total = at;
   return s;
@@ -1182,7 +1192,7 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
   auto f = [scratch](size_t off) { return reinterpret_cast<float*>(scratch + off); };
   auto a = [scratch](size_t off) { return reinterpret_cast<AT*>(scratch + off); };
   float *part = f(s.part), *part_sc = f(s.part_sc), *xhat1 = f(s.xhat1), *xhat2 = f(s.xhat2), *xhats = f(s.xhats),
-        *pre = f(s.pre), *inv1 = f(s.inv1), *inv2 = f(s.inv2), *invs = f(s.invs), *dlogits = f(s.dlogits), *ce = f(s.ce);
+        *pre = f(s.pre), *inv1 = f(s.inv1), *inv2 = f(s.inv2), *invs = f(s.invs), *logits = f(s.logits), *ce = f(s.ce);
   AT *z1 = a(s.z1), *dy2 = a(s.dy2), *dys = a(s.dys), *dy1 = a(s.dy1);
   const int R = g.rows, ci = g.c_in, co = g.c_out, B = g.batch, hw = g.hw;
   const Gathers ga = make_gathers(g);
@@ -1206,7 +1216,7 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
     LAUNCH_CHECK();
   }
   const BnFwdJob<PT> f1{part, s.splits1, p + o.bn1_s, p + o.bn1_b, xhat1, inv1};
-  bn_fwd_kernel<PT, CD, 1><<<bn_grid, THREADS, 0, st>>>(f1, f1, w_t, B, hw, co, z1, nullptr);
+  bn_fwd_kernel<PT, CD, 1><<<bn_grid, THREADS, 0, st>>>(f1, f1, w_t, B, hw, co, z1, nullptr, nullptr);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const ConvJob c2{reinterpret_cast<const bf16*>(z1), nullptr, wq + o.conv2, part, ga.mid3, s.chunk2, s.splits2};
@@ -1218,15 +1228,14 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
   }
   const BnFwdJob<PT> f2{part, s.splits2, p + o.bn2_s, p + o.bn2_b, xhat2, inv2};
   const BnFwdJob<PT> fs{part_sc, 1, p + o.bnsc_s, p + o.bnsc_b, xhats, invs};
-  bn_fwd_kernel<PT, CD, 2><<<bn_grid, THREADS, 0, st>>>(f2, fs, w_t, B, hw, co, nullptr, pre);
-  LAUNCH_CHECK();
-  pool_ce_kernel<CD><<<B, THREADS, 2 * co * sizeof(float), st>>>(pre, bank_y, idx_t, w_t, B, hw, co, dlogits, ce);
+  bn_fwd_kernel<PT, CD, 2><<<bn_grid, THREADS, 0, st>>>(f2, fs, w_t, B, hw, co, nullptr, pre, logits);
   LAUNCH_CHECK();
 
   // backward
   const BnBwdJob<PT, AT> b2{xhat2, inv2, p + o.bn2_s, p + o.bn2_b, dy2, grads + o.bn2_s, grads + o.bn2_b};
   const BnBwdJob<PT, AT> bs{xhats, invs, p + o.bnsc_s, p + o.bnsc_b, dys, grads + o.bnsc_s, grads + o.bnsc_b};
-  bn_bwd_kernel<PT, CD, 0><<<bn_grid, THREADS, 0, st>>>(dlogits, 1, pre, b2, bs, w_t, B, hw, co);
+  bn_bwd_kernel<PT, CD, 0><<<bn_grid, THREADS, 0, st>>>(nullptr, 0, pre, CeArgs{logits, bank_y, idx_t, ce}, b2, bs, w_t, B, hw,
+                                                         co);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const ConvJob dx{reinterpret_cast<const bf16*>(dy2), nullptr, wq + o.conv2, part, ga.mid3t, s.chunk2, s.splits2};
@@ -1239,7 +1248,7 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
     LAUNCH_CHECK();
   }
   const BnBwdJob<PT, AT> b1{xhat1, inv1, p + o.bn1_s, p + o.bn1_b, dy1, grads + o.bn1_s, grads + o.bn1_b};
-  bn_bwd_kernel<PT, CD, 1><<<bn_grid, THREADS, 0, st>>>(part, s.splits2, nullptr, b1, b1, w_t, B, hw, co);
+  bn_bwd_kernel<PT, CD, 1><<<bn_grid, THREADS, 0, st>>>(part, s.splits2, nullptr, CeArgs{}, b1, b1, w_t, B, hw, co);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const bf16* xb = reinterpret_cast<const bf16*>(bank);
@@ -1257,10 +1266,8 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
   return 0;
 }
 
-constexpr int KERNELS_PER_STEP_MMA = 10;
-constexpr int KERNELS_PER_STEP_FMA = 13;
-
-bool pool_fits(const Geom& g) { return 2 * g.c_out * sizeof(float) <= 48 * 1024; }
+constexpr int KERNELS_PER_STEP_MMA = 9;
+constexpr int KERNELS_PER_STEP_FMA = 12;
 
 // the bf16 weights the tensor-core products read: p itself, or the shadow copy made here
 template <typename PT>
@@ -1290,7 +1297,6 @@ int enqueue_scan(const Geom& g, PT* p, const XT* bank, const int* bank_y, const 
   bf16* shadow = SHADOW ? reinterpret_cast<bf16*>(scratch + s.shadow) : nullptr;
   const float log_b1 = static_cast<float>(log(0.9)), log_b2 = static_cast<float>(log(0.999));
   const int adam_blocks = static_cast<int>((np / 8 + THREADS - 1) / THREADS);
-  if (!pool_fits(g)) return static_cast<int>(cudaErrorInvalidValue);
   if (MMA) {
     const int err = configure_mma();
     if (err) return err;
@@ -1340,7 +1346,6 @@ template <typename PT, typename XT, bool MMA>
 int grads_once(const Geom& g, const PT* p, const XT* bank, const int* bank_y, const int* idx_t, const float* w_t,
                char* scratch, float* grads, float* loss, cudaStream_t st) {
   const Scratch s = make_scratch(g, MMA);
-  if (!pool_fits(g)) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* wq = nullptr;
   if (MMA) {
     int err = configure_mma();
