@@ -703,8 +703,7 @@ def phase_profile(torch, finetune, argv, steady_s: float):
     if edge_us == 0:
         fail("the profiler traced device kernels but not the edge kernel")
     print(f"profiler: edge kernel on the device timeline, {edge_us / 1e3:.4f} ms device time in one episode")
-    scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAll", "bn_fwd_kernel", "bn_bwd_kernel",
-                    "adam_kernel")
+    scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAllAdam", "bn_fwd_kernel", "bn_bwd_kernel")
     scan_us = {sym: sum(e.self_device_time_total for e in on_device if sym in e.key) for sym in scan_symbols}
     if min(scan_us.values()) == 0:
         fail(f"the profiler traced device kernels but not every kernel of the fused scan: {scan_us}")

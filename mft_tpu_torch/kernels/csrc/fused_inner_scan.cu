@@ -16,7 +16,7 @@
 // roofline, operations: a step is 4.75 GFLOP of products against 0.5 MB of
 // gathered bank rows, so 500 steps are bound by 2.4 ms at the bf16
 // tensor-core rate (H100 SXM, 989 TFLOP/s).  That bound is out of reach at
-// one lane: with 245 rows a step is a chain of nine dependent small kernels,
+// one lane: with 245 rows a step is a chain of eight dependent small kernels,
 // each a fraction of a wave on 132 SMs, that pass the lane's state (7.3 MB
 // of bf16 parameters, 14.7 MB of moments, 14.7 MB of f32 gradients) and the
 // split-K partial sums through L2.  What the design does about it: the seven
@@ -24,7 +24,7 @@
 // pass over rows or parameters moves 16 bytes a thread on at least 128
 // blocks, and kernels that share inputs share a launch.
 //
-// A step with a bf16 bank (the tensor-core route), 9 kernels:
+// A step with a bf16 bank (the tensor-core route), 8 kernels:
 //   1  conv_mma<0, TagConv1ScFwd>  conv1 and the 1x1 shortcut conv (the
 //                                  shortcut as one more blockIdx.z slice)
 //   2  bn_fwd<1>                   BN1 + ReLU -> z1 (bf16), xhat1, inv1
@@ -37,9 +37,12 @@
 //   6  conv_mma<1, TagConv2Dx>     conv2's input gradient as a gather
 //                                  (flipped taps): no scatter, fixed order
 //   7  bn_bwd<1>                   ReLU + BN1 backward -> dy1 (bf16)
-//   8  wgrad_mma<TagDwAll>         the three weight gradients, one grid
-//   9  adam                        one pass over all nine tensors, 8
-//                                  elements (16-byte accesses) a thread
+//   8  wgrad_mma<TagDwAllAdam>     the three weight gradients, one grid; a
+//                                  tile is final, so its block applies
+//                                  torch-Adam to its weights in place and
+//                                  the f32 conv gradients never reach
+//                                  memory (two more blocks update the BN
+//                                  vectors)
 // The products are warpgroup wgmma.mma_async m64n128k16 (bf16 in, f32
 // accumulators in registers), both operands from shared memory in the
 // 128-byte swizzle, staged by 16-byte cp.async through a 4-stage ring.  The
@@ -71,6 +74,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -91,9 +96,10 @@ constexpr int WG_KB = 32;                     // rows reduced per stage of a wei
 constexpr int CONV_STAGE_BYTES = 64 * 128 + MMA_N * 128;
 constexpr int CONV_SMEM = MMA_STAGES * CONV_STAGE_BYTES + 1024;
 constexpr int WG_STAGE_BYTES = 4 * WG_KB * 128;
-constexpr int WG_SMEM = MMA_STAGES * WG_STAGE_BYTES + 1024;
+constexpr int WG_TILE_LD = MMA_N + 4;         // row stride (floats) of the f32 tile the Adam epilogue stages
+constexpr int WG_SMEM = (MMA_STAGES * WG_STAGE_BYTES > 128 * WG_TILE_LD * 4 ? MMA_STAGES * WG_STAGE_BYTES
+                                                                            : 128 * WG_TILE_LD * 4) + 1024;
 constexpr float BN_EPS = 1e-5f;
-constexpr float ADAM_EPS = 1e-8f;
 
 __device__ __forceinline__ float ldf(const float* p, size_t i) { return p[i]; }
 __device__ __forceinline__ float ldf(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
@@ -109,6 +115,29 @@ __device__ __forceinline__ float round_cd(float v) {
 template <bool BF16> struct Act { typedef float type; };
 template <> struct Act<true> { typedef bf16 type; };
 
+// First statement of every kernel: it may have been placed on the SMs while
+// its predecessor on the stream was still draining (see launch()); wait until
+// that one has completed and its writes are visible.
+__device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// torch-Adam for one element: f32 math, moments rounded to bf16 and the
+// rounded moments feeding the update.  The *_rn intrinsics keep the compiler
+// from fusing multiply-adds, so the rounding is that of the plain version's
+// separate operations.  m, v: the stored moments in, the new ones (bf16
+// values) out; returns the new parameter, not yet rounded to its carry dtype.
+struct AdamCoef {
+  float neg_lr, bc1, bc2;
+};
+__device__ __forceinline__ float adam_one(float p, float g, float& m, float& v, const AdamCoef& k) {
+  const float b1 = 0.9f, b2 = 0.999f;
+  const float omb1 = static_cast<float>(1.0 - 0.9), omb2 = static_cast<float>(1.0 - 0.999);
+  m = __bfloat162float(__float2bfloat16(__fadd_rn(__fmul_rn(b1, m), __fmul_rn(omb1, g))));
+  v = __bfloat162float(__float2bfloat16(__fadd_rn(__fmul_rn(b2, v), __fmul_rn(omb2, __fmul_rn(g, g)))));
+  const float mh = __fdiv_rn(m, k.bc1);
+  const float vh = __fdiv_rn(v, k.bc2);
+  return __fadd_rn(p, __fdiv_rn(__fmul_rn(k.neg_lr, mh), __fadd_rn(__fsqrt_rn(vh), 1e-8f)));
+}
+
 // BN output; one instruction, so the forward and the ReLU mask of the
 // backward see the same bits
 __device__ __forceinline__ float bn_affine(float xhat, float scale, float bias) { return fmaf(xhat, scale, bias); }
@@ -123,6 +152,86 @@ __device__ __forceinline__ float bn_affine(float xhat, float scale, float bias) 
 struct Gather {
   int batch, hout, hin, stride, ksize, pad, sgn, C;
 };
+
+// four and eight neighbouring values at a time
+__device__ __forceinline__ float4 f4(float v) { return make_float4(v, v, v, v); }
+__device__ __forceinline__ float4 operator+(float4 a, float4 b) { return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w); }
+__device__ __forceinline__ float4 operator-(float4 a, float4 b) { return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w); }
+__device__ __forceinline__ float4 operator*(float4 a, float4 b) { return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w); }
+__device__ __forceinline__ float4 operator*(float4 a, float s) { return make_float4(a.x * s, a.y * s, a.z * s, a.w * s); }
+__device__ __forceinline__ float4 operator/(float4 a, float s) { return make_float4(a.x / s, a.y / s, a.z / s, a.w / s); }
+__device__ __forceinline__ float4 ld4(const float* p, size_t i) { return *reinterpret_cast<const float4*>(p + i); }
+__device__ __forceinline__ float4 ld4(const bf16* p, size_t i) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p + i);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void st4(float* p, size_t i, float4 v) { *reinterpret_cast<float4*>(p + i) = v; }
+__device__ __forceinline__ void st4(bf16* p, size_t i, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p + i) = u;
+}
+template <bool BF16>
+__device__ __forceinline__ float4 round_cd4(float4 v) {
+  return make_float4(round_cd<BF16>(v.x), round_cd<BF16>(v.y), round_cd<BF16>(v.z), round_cd<BF16>(v.w));
+}
+__device__ __forceinline__ float4 bn_affine4(float4 x, float4 s, float4 b) {
+  return make_float4(bn_affine(x.x, s.x, b.x), bn_affine(x.y, s.y, b.y), bn_affine(x.z, s.z, b.z), bn_affine(x.w, s.w, b.w));
+}
+
+
+// eight consecutive values as f32
+struct F8 {
+  float v[8];
+};
+__device__ __forceinline__ F8 ld8(const float* p, size_t i) {
+  const float4 a = ld4(p, i), b = ld4(p, i + 4);
+  return F8{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+__device__ __forceinline__ F8 ld8(const bf16* p, size_t i) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p + i);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  F8 r;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+    r.v[2 * k] = f.x;
+    r.v[2 * k + 1] = f.y;
+  }
+  return r;
+}
+__device__ __forceinline__ void st8(float* p, size_t i, const F8& r) {
+  st4(p, i, make_float4(r.v[0], r.v[1], r.v[2], r.v[3]));
+  st4(p, i + 4, make_float4(r.v[4], r.v[5], r.v[6], r.v[7]));
+}
+__device__ __forceinline__ void st8(bf16* p, size_t i, const F8& r) {
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(r.v[2 * k], r.v[2 * k + 1]);
+    w[k] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p + i) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The Adam update of eight neighbouring elements (16-byte accesses) whose
+// gradients are at hand; `shadow` (or null) receives the new parameters
+// rounded to bf16, for the tensor-core products under an f32 carry.
+template <typename PT>
+__device__ __forceinline__ void adam_eight(PT* p, bf16* mu, bf16* nu, bf16* shadow, size_t i, const F8& g,
+                                           const AdamCoef& k) {
+  F8 pv = ld8(p, i), m = ld8(mu, i), v = ld8(nu, i);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) pv.v[e] = adam_one(pv.v[e], g.v[e], m.v[e], v.v[e], k);
+  st8(mu, i, m);
+  st8(nu, i, v);
+  st8(p, i, pv);
+  if (shadow) st8(shadow, i, pv);
+}
 
 // ---------------------------------------------------------------------------
 // the f32 FMA products (f32 bank, or route 1)
@@ -153,6 +262,7 @@ template <typename XT, typename WT, bool CD_BF16, bool W_KFAST>
 __global__ void __launch_bounds__(THREADS)
 conv_gemm_kernel(const XT* __restrict__ X, const int* __restrict__ img, const WT* __restrict__ W,
                  float* __restrict__ out, Gather g, int N, int w_tap, int w_c, int w_n, int kchunk) {
+  grid_dependency_wait();
   __shared__ float As[KT][TM + 1];
   __shared__ float Bs[KT][TN + 1];
   const int hw = g.hout * g.hout;
@@ -240,6 +350,7 @@ template <typename XT, typename DT>
 __global__ void __launch_bounds__(THREADS)
 conv_wgrad_kernel(const XT* __restrict__ X, const int* __restrict__ img, const DT* __restrict__ DY,
                   float* __restrict__ out, Gather g, int N) {
+  grid_dependency_wait();
   __shared__ float As[KT][TM + 1];
   __shared__ float Bs[KT][TN + 1];
   __shared__ int srow[MAX_ROWS];  // (image << 16) | (oy << 8) | ox of each row m
@@ -403,6 +514,7 @@ struct TagConv1Dw;
 struct TagConv2Dw;
 struct TagConvScDw;
 struct TagDwAll;
+struct TagDwAllAdam;
 
 // One product of the forward / input-gradient kind:
 // out[z][m, n] = sum over split z's K range of X[src(m, tap), c] * B[k, n], k = tap*C + c.
@@ -425,6 +537,7 @@ struct ConvJobs {
 template <int MODE, typename TAG>
 __global__ void __launch_bounds__(128)
 conv_mma_kernel(const ConvJobs js) {
+  grid_dependency_wait();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
   int z = blockIdx.z;
@@ -541,16 +654,45 @@ struct WgradJobs {
   int njobs, N;
 };
 
+// For the form of wgrad_mma_kernel that applies the Adam update instead of
+// writing the gradients: the flat parameter buffer and its moments, the
+// element offset of each job's weight in it, and the BN vectors (three
+// segments of vec_len elements at vec_off, gradients read from `grads`),
+// which `vec_blocks` extra blocks after the tiles update.
+struct WgradAdam {
+  void* p;
+  bf16 *mu, *nu, *shadow;
+  const float* grads;
+  size_t off[3], vec_off[3];
+  int vec_len, vec_blocks, tiles;
+  AdamCoef k;
+};
+
 // Grid: sum of the jobs' tiles; two warpgroups, each 64 of the tile's 128
 // weight rows.  Both operands are MN-major (the reduction runs over the rows
 // m, which are the slow index of X and of DY); rows m >= R are zero-filled.
-// C is a multiple of 64, N of MMA_N.
-template <typename TAG>
+// C is a multiple of 64, N of MMA_N.  PT = void: the tile goes to j.out.
+// PT = the carry dtype: a weight-gradient tile is final (no split), so the
+// block applies torch-Adam to its 128 x 128 weights right away and the f32
+// gradients never reach memory; nothing else in the launch reads the weights.
+template <typename TAG, typename PT>
 __global__ void __launch_bounds__(256)
-wgrad_mma_kernel(const WgradJobs js) {
+wgrad_mma_kernel(const WgradJobs js, const WgradAdam ad) {
+  grid_dependency_wait();
   extern __shared__ unsigned char smem_raw[];
   __shared__ int srow[MAX_ROWS];  // (image << 16) | (oy << 8) | ox of each row m
   const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  if constexpr (!std::is_void<PT>::value) {
+    if (static_cast<int>(blockIdx.x) >= ad.tiles) {  // the BN vectors
+      const int first = ((blockIdx.x - ad.tiles) * 256 + threadIdx.x) * 8;
+      for (int seg = 0; seg < 3; ++seg)
+        for (int i = first; i < ad.vec_len; i += ad.vec_blocks * 256 * 8) {
+          const size_t at = ad.vec_off[seg] + i;
+          adam_eight(static_cast<PT*>(ad.p), ad.mu, ad.nu, ad.shadow, at, ld8(ad.grads, at), ad.k);
+        }
+      return;
+    }
+  }
   int t = blockIdx.x, ji = 0;
   while (ji + 1 < js.njobs && t >= js.job[ji].tiles) t -= js.job[ji++].tiles;
   const WgradJob j = ji == 0 ? js.job[0] : (ji == 1 ? js.job[1] : js.job[2]);
@@ -629,6 +771,29 @@ wgrad_mma_kernel(const WgradJobs js) {
   }
 
   const int row = r0 + 64 * wg + 16 * ((tid % 128) / 32) + (tid % 32) / 4, col = n0 + 2 * (tid % 4);
+  if constexpr (!std::is_void<PT>::value) {
+    // through shared memory (the ring is free now), so that the update moves 16 bytes a thread along N
+    __syncthreads();  // every warp is past its last wgmma
+    float* tile = reinterpret_cast<float*>(smem_raw + (smem - smem_u32(smem_raw)));
+    const int lrow = 64 * wg + 16 * ((tid % 128) / 32) + (tid % 32) / 4, lcol = 2 * (tid % 4);
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn) {
+      *reinterpret_cast<float2*>(tile + lrow * WG_TILE_LD + lcol + 8 * jn) = make_float2(acc[4 * jn], acc[4 * jn + 1]);
+      *reinterpret_cast<float2*>(tile + (lrow + 8) * WG_TILE_LD + lcol + 8 * jn) =
+          make_float2(acc[4 * jn + 2], acc[4 * jn + 3]);
+    }
+    __syncthreads();
+    const size_t off = ji == 0 ? ad.off[0] : (ji == 1 ? ad.off[1] : ad.off[2]);
+    PT* p = static_cast<PT*>(ad.p) + off;
+    bf16 *mu = ad.mu + off, *nu = ad.nu + off, *shadow = ad.shadow ? ad.shadow + off : nullptr;
+#pragma unroll 2
+    for (int q = tid; q < 128 * MMA_N / 8; q += 256) {
+      const int r = q / (MMA_N / 8), c8 = q % (MMA_N / 8);
+      if (r0 + r < MW)
+        adam_eight(p, mu, nu, shadow, static_cast<size_t>(r0 + r) * N + n0 + 8 * c8, ld8(tile, r * WG_TILE_LD + 8 * c8), ad.k);
+    }
+    return;
+  }
 #pragma unroll
   for (int jn = 0; jn < 16; ++jn) {
     if (row < MW)
@@ -643,35 +808,6 @@ wgrad_mma_kernel(const WgradJobs js) {
 // ---------------------------------------------------------------------------
 // BN, loss and Adam (f32 math, both routes)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float4 f4(float v) { return make_float4(v, v, v, v); }
-__device__ __forceinline__ float4 operator+(float4 a, float4 b) { return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w); }
-__device__ __forceinline__ float4 operator-(float4 a, float4 b) { return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w); }
-__device__ __forceinline__ float4 operator*(float4 a, float4 b) { return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w); }
-__device__ __forceinline__ float4 operator*(float4 a, float s) { return make_float4(a.x * s, a.y * s, a.z * s, a.w * s); }
-__device__ __forceinline__ float4 operator/(float4 a, float s) { return make_float4(a.x / s, a.y / s, a.z / s, a.w / s); }
-__device__ __forceinline__ float4 ld4(const float* p, size_t i) { return *reinterpret_cast<const float4*>(p + i); }
-__device__ __forceinline__ float4 ld4(const bf16* p, size_t i) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p + i);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void st4(float* p, size_t i, float4 v) { *reinterpret_cast<float4*>(p + i) = v; }
-__device__ __forceinline__ void st4(bf16* p, size_t i, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&a);
-  u.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p + i) = u;
-}
-template <bool BF16>
-__device__ __forceinline__ float4 round_cd4(float4 v) {
-  return make_float4(round_cd<BF16>(v.x), round_cd<BF16>(v.y), round_cd<BF16>(v.z), round_cd<BF16>(v.w));
-}
-__device__ __forceinline__ float4 bn_affine4(float4 x, float4 s, float4 b) {
-  return make_float4(bn_affine(x.x, s.x, b.x), bn_affine(x.y, s.y, b.y), bn_affine(x.z, s.z, b.z), bn_affine(x.w, s.w, b.w));
-}
 
 // Sum over the block's THREADS threads of four values each, in a fixed order
 // (a shuffle tree within each warp, then the warps in turn); every thread
@@ -723,6 +859,7 @@ template <typename WT, bool CD_BF16, int NJ>
 __global__ void __launch_bounds__(THREADS)
 bn_fwd_kernel(BnFwdJob<WT> j0, BnFwdJob<WT> j1, const float* __restrict__ w_t, int batch, int hw, int C,
               typename Act<CD_BF16>::type* __restrict__ act, float* __restrict__ pre, float* __restrict__ logits) {
+  grid_dependency_wait();
   __shared__ float4 red[THREADS / 32];
   __shared__ float4 pool[NJ == 2 ? MAX_ROWS : 1];
   const int c = blockIdx.x * BN_CH, tid = threadIdx.x;
@@ -796,6 +933,7 @@ bn_fwd_kernel(BnFwdJob<WT> j0, BnFwdJob<WT> j1, const float* __restrict__ w_t, i
 
 __global__ void loss_kernel(const float* __restrict__ ce, const float* __restrict__ w_t, int batch,
                             float* __restrict__ loss) {
+  grid_dependency_wait();
   if (threadIdx.x == 0 && blockIdx.x == 0) {
     float s = 0.f;
     for (int b = 0; b < batch; ++b) s += ce[b];
@@ -837,6 +975,7 @@ __global__ void __launch_bounds__(THREADS)
 bn_bwd_kernel(const float* __restrict__ src, int S, const float* __restrict__ pre, CeArgs ce,
               BnBwdJob<WT, typename Act<CD_BF16>::type> j0, BnBwdJob<WT, typename Act<CD_BF16>::type> j1,
               const float* __restrict__ w_t, int batch, int hw, int C) {
+  grid_dependency_wait();
   __shared__ float4 red[THREADS / 32];
   __shared__ float zmax_s[MODE == 0 ? MAX_ROWS : 1], se_s[MODE == 0 ? MAX_ROWS : 1];
   const int c = blockIdx.x * BN_CH, tid = threadIdx.x;
@@ -929,76 +1068,23 @@ bn_bwd_kernel(const float* __restrict__ src, int S, const float* __restrict__ pr
   }
 }
 
-// eight consecutive values as f32
-struct F8 {
-  float v[8];
-};
-__device__ __forceinline__ F8 ld8(const float* p, size_t i) {
-  const float4 a = ld4(p, i), b = ld4(p, i + 4);
-  return F8{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
-}
-__device__ __forceinline__ F8 ld8(const bf16* p, size_t i) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p + i);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  F8 r;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[k]));
-    r.v[2 * k] = f.x;
-    r.v[2 * k + 1] = f.y;
-  }
-  return r;
-}
-__device__ __forceinline__ void st8(float* p, size_t i, const F8& r) {
-  st4(p, i, make_float4(r.v[0], r.v[1], r.v[2], r.v[3]));
-  st4(p, i + 4, make_float4(r.v[4], r.v[5], r.v[6], r.v[7]));
-}
-__device__ __forceinline__ void st8(bf16* p, size_t i, const F8& r) {
-  uint32_t w[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(r.v[2 * k], r.v[2 * k + 1]);
-    w[k] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p + i) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// torch-Adam over the flat parameter buffer, eight elements a thread: f32
-// math, moments stored bf16 and read back rounded, the parameter rounded to
-// its carry dtype.  The *_rn intrinsics keep the compiler from fusing
-// multiply-adds, so the rounding is that of the plain version's separate
-// operations.  `shadow` (or null) receives the new parameters rounded to
-// bf16, for the tensor-core products under an f32 carry.  n is a multiple of 8.
+// torch-Adam over a flat parameter buffer, eight elements a thread (16-byte
+// accesses): moments stored bf16, the parameter rounded to its carry dtype.
+// `shadow` (or null) receives the new parameters rounded to bf16, for the
+// tensor-core products under an f32 carry.  n is a multiple of 8.
 template <typename PT>
 __global__ void __launch_bounds__(THREADS)
 adam_kernel(PT* __restrict__ p, bf16* __restrict__ mu, bf16* __restrict__ nu, const float* __restrict__ g,
-            bf16* __restrict__ shadow, size_t n, float neg_lr, float bc1, float bc2) {
-  const float b1 = 0.9f, b2 = 0.999f;
-  const float omb1 = static_cast<float>(1.0 - 0.9), omb2 = static_cast<float>(1.0 - 0.999);
+            bf16* __restrict__ shadow, size_t n, AdamCoef k) {
+  grid_dependency_wait();
   const size_t i = (static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) * 8;
-  if (i >= n) return;
-  const F8 gf = ld8(g, i), m0 = ld8(mu, i), v0 = ld8(nu, i);
-  F8 pv = ld8(p, i), mb, vb;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float m = __fadd_rn(__fmul_rn(b1, m0.v[k]), __fmul_rn(omb1, gf.v[k]));
-    const float v = __fadd_rn(__fmul_rn(b2, v0.v[k]), __fmul_rn(omb2, __fmul_rn(gf.v[k], gf.v[k])));
-    mb.v[k] = round_cd<true>(m);
-    vb.v[k] = round_cd<true>(v);
-    const float mh = __fdiv_rn(mb.v[k], bc1);
-    const float vh = __fdiv_rn(vb.v[k], bc2);
-    const float upd = __fdiv_rn(__fmul_rn(neg_lr, mh), __fadd_rn(__fsqrt_rn(vh), ADAM_EPS));
-    pv.v[k] = __fadd_rn(pv.v[k], upd);
-  }
-  st8(mu, i, mb);
-  st8(nu, i, vb);
-  st8(p, i, pv);
-  if (shadow) st8(shadow, i, pv);
+  if (i < n) adam_eight(p, mu, nu, shadow, i, ld8(g, i), k);
 }
 
 // bf16 copy of f32 parameters (the tensor-core products' weights under an f32 carry)
 __global__ void __launch_bounds__(THREADS)
 round_params_kernel(const float* __restrict__ p, bf16* __restrict__ shadow, size_t n) {
+  grid_dependency_wait();
   const size_t i = (static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) * 8;
   if (i < n) st8(shadow, i, ld8(p, i));
 }
@@ -1006,6 +1092,7 @@ round_params_kernel(const float* __restrict__ p, bf16* __restrict__ shadow, size
 // out = sum_s parts[s], in the order the BN kernels add the splits (single products only)
 __global__ void __launch_bounds__(THREADS)
 sum_parts_kernel(const float* __restrict__ parts, int S, size_t n, float* __restrict__ out) {
+  grid_dependency_wait();
   const size_t i = (static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) * 4;
   if (i >= n) return;
   float4 y = f4(0.f);
@@ -1107,6 +1194,25 @@ Scratch make_scratch(const Geom& g, bool mma) {
   return s;
 }
 
+// Every kernel goes out as a programmatic dependent launch: its blocks may
+// be placed while its predecessor on the stream drains, and it begins with
+// grid_dependency_wait(), which holds it until that predecessor has
+// completed and its writes are visible.
+template <typename... P, typename... A>
+void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem, cudaStream_t st, A&&... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, static_cast<P>(args)...);  // LAUNCH_CHECK() reads the error
+}
+
 #define LAUNCH_CHECK()                                      \
   do {                                                      \
     const cudaError_t e_ = cudaGetLastError();              \
@@ -1127,10 +1233,12 @@ int configure_mma() {
   if (e == cudaSuccess) e = allow_smem(conv_mma_kernel<0, TagConv2Fwd>, CONV_SMEM);
   if (e == cudaSuccess) e = allow_smem(conv_mma_kernel<0, TagConv1ScFwd>, CONV_SMEM);
   if (e == cudaSuccess) e = allow_smem(conv_mma_kernel<1, TagConv2Dx>, CONV_SMEM);
-  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagConv1Dw>, WG_SMEM);
-  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagConv2Dw>, WG_SMEM);
-  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagConvScDw>, WG_SMEM);
-  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAll>, WG_SMEM);
+  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagConv1Dw, void>, WG_SMEM);
+  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagConv2Dw, void>, WG_SMEM);
+  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagConvScDw, void>, WG_SMEM);
+  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAll, void>, WG_SMEM);
+  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAllAdam, bf16>, WG_SMEM);
+  if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAllAdam, float>, WG_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);  // not kept: the next call tries again
   return done = 0;
 }
@@ -1155,7 +1263,7 @@ int launch_conv_mma(const Geom& g, const ConvJob& a, const ConvJob* b, cudaStrea
   if (!b) js.job[1].splits = 0;
   js.N = g.c_out;
   const dim3 grid(g.c_out / MMA_N, cdiv(g.rows, 64), js.job[0].splits + js.job[1].splits);
-  conv_mma_kernel<MODE, TAG><<<grid, 128, CONV_SMEM, st>>>(js);
+  launch(conv_mma_kernel<MODE, TAG>, grid, 128, CONV_SMEM, st, js);
   LAUNCH_CHECK();
   return 0;
 }
@@ -1164,8 +1272,9 @@ WgradJob wgrad_job(const Geom& g, const bf16* X, const int* img, const bf16* DY,
   return WgradJob{X, img, DY, out, ga, cdiv(ga.ksize * ga.ksize * ga.C, 128) * (g.c_out / MMA_N)};
 }
 
-template <typename TAG>
-int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, cudaStream_t st) {
+// adam: null to write the gradients; else the update is applied in place (PT: the carry dtype)
+template <typename TAG, typename PT = void>
+int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, const WgradAdam* adam, cudaStream_t st) {
   WgradJobs js;
   int tiles = 0;
   for (int i = 0; i < 3; ++i) {
@@ -1174,7 +1283,9 @@ int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, cudaStream_
   }
   js.njobs = njobs;
   js.N = g.c_out;
-  wgrad_mma_kernel<TAG><<<tiles, 256, WG_SMEM, st>>>(js);
+  WgradAdam ad = adam ? *adam : WgradAdam{};
+  ad.tiles = tiles;
+  launch(wgrad_mma_kernel<TAG, PT>, tiles + ad.vec_blocks, 256, WG_SMEM, st, js, ad);
   LAUNCH_CHECK();
   return 0;
 }
@@ -1183,9 +1294,13 @@ int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, cudaStream_
 // p go to `grads` (every element is written).  PT: carry dtype of p; XT: the
 // bank's dtype, which is the compute dtype; MMA: the products' route.  wq: the
 // parameters as bf16 (p itself under a bf16 carry), read by the MMA route only.
+// adam (MMA route only; p, mu, nu, shadow and the coefficients filled in):
+// the weight-gradient launch applies the update instead of writing the conv
+// gradients; the BN gradients still pass through `grads`.
 template <typename PT, typename XT, bool MMA>
 int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, const bf16* wq, const XT* bank,
-                  const int* bank_y, const int* idx_t, const float* w_t, float* grads, cudaStream_t st) {
+                  const int* bank_y, const int* idx_t, const float* w_t, float* grads, const WgradAdam* adam,
+                  cudaStream_t st) {
   constexpr bool CD = sizeof(XT) == sizeof(bf16);
   typedef typename Act<CD>::type AT;
   const ParamOffsets o = param_offsets(g);
@@ -1208,47 +1323,47 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
     const ConvJob sc{reinterpret_cast<const bf16*>(bank), idx_t, wq + o.conv_sc, part_sc, ga.in1, ci, 1};
     if ((err = launch_conv_mma<0, TagConv1ScFwd>(g, c1, &sc, st))) return err;
   } else {
-    conv_gemm_kernel<XT, PT, CD, false><<<tiles1, THREADS, 0, st>>>(
+    launch(conv_gemm_kernel<XT, PT, CD, false>, tiles1, THREADS, 0, st,
         bank, idx_t, p + o.conv1, part, ga.in3, co, ci * co, co, 1, s.chunk1);
     LAUNCH_CHECK();
-    conv_gemm_kernel<XT, PT, CD, false><<<tiles, THREADS, 0, st>>>(bank, idx_t, p + o.conv_sc, part_sc, ga.in1, co, 0,
+    launch(conv_gemm_kernel<XT, PT, CD, false>, tiles, THREADS, 0, st, bank, idx_t, p + o.conv_sc, part_sc, ga.in1, co, 0,
                                                                    co, 1, ci);
     LAUNCH_CHECK();
   }
   const BnFwdJob<PT> f1{part, s.splits1, p + o.bn1_s, p + o.bn1_b, xhat1, inv1};
-  bn_fwd_kernel<PT, CD, 1><<<bn_grid, THREADS, 0, st>>>(f1, f1, w_t, B, hw, co, z1, nullptr, nullptr);
+  launch(bn_fwd_kernel<PT, CD, 1>, bn_grid, THREADS, 0, st, f1, f1, w_t, B, hw, co, z1, nullptr, nullptr);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const ConvJob c2{reinterpret_cast<const bf16*>(z1), nullptr, wq + o.conv2, part, ga.mid3, s.chunk2, s.splits2};
     if ((err = launch_conv_mma<0, TagConv2Fwd>(g, c2, nullptr, st))) return err;
   } else {
-    conv_gemm_kernel<AT, PT, CD, false><<<tiles2, THREADS, 0, st>>>(
+    launch(conv_gemm_kernel<AT, PT, CD, false>, tiles2, THREADS, 0, st,
         z1, nullptr, p + o.conv2, part, ga.mid3, co, co * co, co, 1, s.chunk2);
     LAUNCH_CHECK();
   }
   const BnFwdJob<PT> f2{part, s.splits2, p + o.bn2_s, p + o.bn2_b, xhat2, inv2};
   const BnFwdJob<PT> fs{part_sc, 1, p + o.bnsc_s, p + o.bnsc_b, xhats, invs};
-  bn_fwd_kernel<PT, CD, 2><<<bn_grid, THREADS, 0, st>>>(f2, fs, w_t, B, hw, co, nullptr, pre, logits);
+  launch(bn_fwd_kernel<PT, CD, 2>, bn_grid, THREADS, 0, st, f2, fs, w_t, B, hw, co, nullptr, pre, logits);
   LAUNCH_CHECK();
 
   // backward
   const BnBwdJob<PT, AT> b2{xhat2, inv2, p + o.bn2_s, p + o.bn2_b, dy2, grads + o.bn2_s, grads + o.bn2_b};
   const BnBwdJob<PT, AT> bs{xhats, invs, p + o.bnsc_s, p + o.bnsc_b, dys, grads + o.bnsc_s, grads + o.bnsc_b};
-  bn_bwd_kernel<PT, CD, 0><<<bn_grid, THREADS, 0, st>>>(nullptr, 0, pre, CeArgs{logits, bank_y, idx_t, ce}, b2, bs, w_t, B, hw,
+  launch(bn_bwd_kernel<PT, CD, 0>, bn_grid, THREADS, 0, st, nullptr, 0, pre, CeArgs{logits, bank_y, idx_t, ce}, b2, bs, w_t, B, hw,
                                                          co);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const ConvJob dx{reinterpret_cast<const bf16*>(dy2), nullptr, wq + o.conv2, part, ga.mid3t, s.chunk2, s.splits2};
     if ((err = launch_conv_mma<1, TagConv2Dx>(g, dx, nullptr, st))) return err;
   } else {
-    conv_wgrad_kernel<AT, AT><<<wg2, THREADS, 0, st>>>(z1, nullptr, dy2, grads + o.conv2, ga.mid3, co);
+    launch(conv_wgrad_kernel<AT, AT>, wg2, THREADS, 0, st, z1, nullptr, dy2, grads + o.conv2, ga.mid3, co);
     LAUNCH_CHECK();
-    conv_gemm_kernel<AT, PT, CD, true><<<tiles2, THREADS, 0, st>>>(
+    launch(conv_gemm_kernel<AT, PT, CD, true>, tiles2, THREADS, 0, st,
         dy2, nullptr, p + o.conv2, part, ga.mid3t, co, co * co, 1, co, s.chunk2);
     LAUNCH_CHECK();
   }
   const BnBwdJob<PT, AT> b1{xhat1, inv1, p + o.bn1_s, p + o.bn1_b, dy1, grads + o.bn1_s, grads + o.bn1_b};
-  bn_bwd_kernel<PT, CD, 1><<<bn_grid, THREADS, 0, st>>>(part, s.splits2, nullptr, CeArgs{}, b1, b1, w_t, B, hw, co);
+  launch(bn_bwd_kernel<PT, CD, 1>, bn_grid, THREADS, 0, st, part, s.splits2, nullptr, CeArgs{}, b1, b1, w_t, B, hw, co);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const bf16* xb = reinterpret_cast<const bf16*>(bank);
@@ -1256,17 +1371,27 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
         wgrad_job(g, reinterpret_cast<const bf16*>(z1), nullptr, reinterpret_cast<const bf16*>(dy2), grads + o.conv2, ga.mid3),
         wgrad_job(g, xb, idx_t, reinterpret_cast<const bf16*>(dy1), grads + o.conv1, ga.in3),
         wgrad_job(g, xb, idx_t, reinterpret_cast<const bf16*>(dys), grads + o.conv_sc, ga.in1)};
-    if ((err = launch_wgrad_mma<TagDwAll>(g, jobs, 3, st))) return err;
+    if (adam) {  // the jobs' order: conv2, conv1, the shortcut
+      WgradAdam ad = *adam;
+      ad.off[0] = o.conv2, ad.off[1] = o.conv1, ad.off[2] = o.conv_sc;
+      ad.vec_off[0] = o.bn1_s, ad.vec_off[1] = o.bn2_s, ad.vec_off[2] = o.bnsc_s;  // each scale with its bias behind it
+      ad.vec_len = 2 * co;
+      ad.vec_blocks = 2;
+      ad.grads = grads;
+      if ((err = launch_wgrad_mma<TagDwAllAdam, PT>(g, jobs, 3, &ad, st))) return err;
+    } else if ((err = launch_wgrad_mma<TagDwAll>(g, jobs, 3, nullptr, st))) {
+      return err;
+    }
   } else {
-    conv_wgrad_kernel<XT, AT><<<wg1, THREADS, 0, st>>>(bank, idx_t, dy1, grads + o.conv1, ga.in3, co);
+    launch(conv_wgrad_kernel<XT, AT>, wg1, THREADS, 0, st, bank, idx_t, dy1, grads + o.conv1, ga.in3, co);
     LAUNCH_CHECK();
-    conv_wgrad_kernel<XT, AT><<<wgsc, THREADS, 0, st>>>(bank, idx_t, dys, grads + o.conv_sc, ga.in1, co);
+    launch(conv_wgrad_kernel<XT, AT>, wgsc, THREADS, 0, st, bank, idx_t, dys, grads + o.conv_sc, ga.in1, co);
     LAUNCH_CHECK();
   }
   return 0;
 }
 
-constexpr int KERNELS_PER_STEP_MMA = 9;
+constexpr int KERNELS_PER_STEP_MMA = 8;
 constexpr int KERNELS_PER_STEP_FMA = 12;
 
 // the bf16 weights the tensor-core products read: p itself, or the shadow copy made here
@@ -1276,7 +1401,7 @@ int bf16_weights(const PT* p, size_t np, char* scratch, const Scratch& s, cudaSt
     *wq = reinterpret_cast<const bf16*>(p);
   } else {
     bf16* shadow = reinterpret_cast<bf16*>(scratch + s.shadow);
-    round_params_kernel<<<static_cast<int>((np / 8 + THREADS - 1) / THREADS), THREADS, 0, st>>>(p, shadow, np);
+    launch(round_params_kernel, static_cast<int>((np / 8 + THREADS - 1) / THREADS), THREADS, 0, st, p, shadow, np);
     LAUNCH_CHECK();
     *wq = shadow;
   }
@@ -1313,14 +1438,18 @@ int enqueue_scan(const Geom& g, PT* p, const XT* bank, const int* bank_y, const 
       if (err) return err;
     }
     for (int t = 0; t < T; ++t) {
+      const float tf = static_cast<float>(t + 1);
+      const AdamCoef coef{-lr, 1.0f - expf(tf * log_b1), 1.0f - expf(tf * log_b2)};
+      WgradAdam ad = {};
+      ad.p = pl, ad.mu = mu, ad.nu = nu, ad.shadow = shadow, ad.k = coef;
       const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, pl, wq, bank + l * lane_bank, bank_y,
                                                  idx + (static_cast<size_t>(l) * T + t) * g.batch,
-                                                 w + static_cast<size_t>(t) * g.batch, grads, st);
+                                                 w + static_cast<size_t>(t) * g.batch, grads, MMA ? &ad : nullptr, st);
       if (err) return err;
-      const float tf = static_cast<float>(t + 1);
-      adam_kernel<PT><<<adam_blocks, THREADS, 0, st>>>(pl, mu, nu, grads, shadow, np, -lr, 1.0f - expf(tf * log_b1),
-                                                       1.0f - expf(tf * log_b2));
-      LAUNCH_CHECK();
+      if (!MMA) {  // the tensor-core route updated in its weight-gradient launch
+        launch(adam_kernel<PT>, adam_blocks, THREADS, 0, st, pl, mu, nu, grads, shadow, np, coef);
+        LAUNCH_CHECK();
+      }
     }
   }
   return 0;
@@ -1352,9 +1481,9 @@ int grads_once(const Geom& g, const PT* p, const XT* bank, const int* bank_y, co
     if (!err) err = bf16_weights<PT>(p, param_offsets(g).total, scratch, s, st, &wq);
     if (err) return err;
   }
-  const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, p, wq, bank, bank_y, idx_t, w_t, grads, st);
+  const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, p, wq, bank, bank_y, idx_t, w_t, grads, nullptr, st);
   if (err) return err;
-  loss_kernel<<<1, 32, 0, st>>>(reinterpret_cast<const float*>(scratch + s.ce), w_t, g.batch, loss);
+  launch(loss_kernel, 1, 32, 0, st, reinterpret_cast<const float*>(scratch + s.ce), w_t, g.batch, loss);
   LAUNCH_CHECK();
   return 0;
 }
@@ -1401,9 +1530,9 @@ int product_once(const Geom& g, int which, const XT* W, const XT* X, const XT* D
       case 1: err = launch_conv_mma<0, TagConvScFwd>(g, ConvJob{x, nullptr, w, part, ga.in1, ci, 1}, nullptr, st); break;
       case 2: err = launch_conv_mma<0, TagConv2Fwd>(g, ConvJob{x, nullptr, w, part, ga.mid3, s.chunk2, splits = s.splits2}, nullptr, st); break;
       case 3: err = launch_conv_mma<1, TagConv2Dx>(g, ConvJob{dy, nullptr, w, part, ga.mid3t, s.chunk2, splits = s.splits2}, nullptr, st); break;
-      case 4: return launch_wgrad_mma<TagConv1Dw>(g, &wj, 1, st);
-      case 5: return launch_wgrad_mma<TagConv2Dw>(g, &wj, 1, st);
-      default: return launch_wgrad_mma<TagConvScDw>(g, &wj, 1, st);
+      case 4: return launch_wgrad_mma<TagConv1Dw>(g, &wj, 1, nullptr, st);
+      case 5: return launch_wgrad_mma<TagConv2Dw>(g, &wj, 1, nullptr, st);
+      default: return launch_wgrad_mma<TagConvScDw>(g, &wj, 1, nullptr, st);
     }
     if (err) return err;
   } else {
@@ -1411,16 +1540,16 @@ int product_once(const Geom& g, int which, const XT* W, const XT* X, const XT* D
     const dim3 tiles1(tiles.x, tiles.y, s.splits1), tiles2(tiles.x, tiles.y, s.splits2);
     const dim3 wgrid(cdiv(co, TN), cdiv(gw.ksize * gw.ksize * gw.C, TM));
     switch (which) {
-      case 0: splits = s.splits1; conv_gemm_kernel<XT, XT, CD, false><<<tiles1, THREADS, 0, st>>>(X, nullptr, W, part, ga.in3, co, ci * co, co, 1, s.chunk1); break;
-      case 1: conv_gemm_kernel<XT, XT, CD, false><<<tiles, THREADS, 0, st>>>(X, nullptr, W, part, ga.in1, co, 0, co, 1, ci); break;
-      case 2: splits = s.splits2; conv_gemm_kernel<XT, XT, CD, false><<<tiles2, THREADS, 0, st>>>(X, nullptr, W, part, ga.mid3, co, co * co, co, 1, s.chunk2); break;
-      case 3: splits = s.splits2; conv_gemm_kernel<XT, XT, CD, true><<<tiles2, THREADS, 0, st>>>(DY, nullptr, W, part, ga.mid3t, co, co * co, 1, co, s.chunk2); break;
-      default: conv_wgrad_kernel<XT, XT><<<wgrid, THREADS, 0, st>>>(X, nullptr, DY, out, gw, co); LAUNCH_CHECK(); return 0;
+      case 0: splits = s.splits1; launch(conv_gemm_kernel<XT, XT, CD, false>, tiles1, THREADS, 0, st, X, nullptr, W, part, ga.in3, co, ci * co, co, 1, s.chunk1); break;
+      case 1: launch(conv_gemm_kernel<XT, XT, CD, false>, tiles, THREADS, 0, st, X, nullptr, W, part, ga.in1, co, 0, co, 1, ci); break;
+      case 2: splits = s.splits2; launch(conv_gemm_kernel<XT, XT, CD, false>, tiles2, THREADS, 0, st, X, nullptr, W, part, ga.mid3, co, co * co, co, 1, s.chunk2); break;
+      case 3: splits = s.splits2; launch(conv_gemm_kernel<XT, XT, CD, true>, tiles2, THREADS, 0, st, DY, nullptr, W, part, ga.mid3t, co, co * co, 1, co, s.chunk2); break;
+      default: launch(conv_wgrad_kernel<XT, XT>, wgrid, THREADS, 0, st, X, nullptr, DY, out, gw, co); LAUNCH_CHECK(); return 0;
     }
     LAUNCH_CHECK();
   }
   const size_t n = static_cast<size_t>(R) * co;
-  sum_parts_kernel<<<static_cast<int>((n / 4 + THREADS - 1) / THREADS), THREADS, 0, st>>>(part, splits, n, out);
+  launch(sum_parts_kernel, static_cast<int>((n / 4 + THREADS - 1) / THREADS), THREADS, 0, st, part, splits, n, out);
   LAUNCH_CHECK();
   return 0;
 }
