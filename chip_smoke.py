@@ -109,7 +109,7 @@ FUSED_PRODUCT_TOL = 1e-4
 #: rows padded to the kernels' 64-row tiles with the dead rows (m >= 245) not
 #: zero, which is what a kernel that did not mask them would compute
 FUSED_PRODUCT_FAULT = "dead rows of the last 64-row tile not zero"
-#: a short scan whose launches all fit the driver's launch queue, so that the
+#: a short scan whose launches all fit the CUDA launch queue, so that the
 #: host's time inside the C call is the enqueue alone
 FUSED_ENQUEUE_STEPS = 60
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
@@ -279,7 +279,42 @@ def fused_bound(geom, n_steps: int, carry_bytes: int, bank_bytes: int):
             "state_bytes": state_bytes, "ms_state": state_bytes / PEAK_BYTES * 1e3}
 
 
-def conv_library_ms(torch, which, pr, geom):
+def fused_step_l2_bytes(geom) -> dict:
+    """Bytes one step of the tensor-core design moves between L2 and the SMs,
+    from the shapes and the kernels' tiling (csrc/fused_inner_scan.cu: 64 x 128
+    output tiles fed by stages of 64 reduction elements, K split so that about
+    128 blocks run; weight gradients in 128 x 128 tiles fed by stages of 32
+    rows; bf16 operands, f32 partial sums and BN state)."""
+    r, ci, co = geom.rows, geom.c_in, geom.c_out
+    rc, m_tiles, n_tiles = r * co, -(-r // 64), co // 128
+
+    def conv(k):  # operand stages read by every output tile, partial sums written
+        kblocks = k // 64
+        per_split = -(-kblocks // max(128 // (m_tiles * n_tiles), 1))
+        splits = -(-kblocks // per_split)
+        return m_tiles * n_tiles * kblocks * (64 + 128) * 64 * 2, splits * rc * 4
+
+    c1, c2, sc = conv(9 * ci), conv(9 * co), (conv(ci)[0], rc * 4)  # the shortcut's K is not split
+    products = c1[0] + sc[0] + 2 * c2[0]  # conv1, shortcut, conv2 and its input gradient
+    parts = c1[1] + sc[1] + 2 * c2[1]
+    wgrad = (9 * ci + 9 * co + ci) // 128 * n_tiles * -(-r // 32) * (128 + 128) * 32 * 2
+    n_params = 9 * ci * co + 9 * co * co + ci * co + 6 * co
+    adam = n_params * 12  # parameter and both moments, bf16, read and written
+    # partial sums read back by the BN kernels; xhat x3, pre (f32) written and read; z1, dy x3 (bf16) written
+    bn = parts + 2 * 4 * rc * 4 + 4 * rc * 2
+    return {"products": products, "partial sums": parts, "weight gradients": wgrad, "Adam": adam, "BN": bn}
+
+
+def l2_stream_rate(torch, dev, nbytes: int = 11 << 20) -> float:
+    """Bytes per second of a device copy whose source and destination (22 MB
+    together, the size of a lane's parameters and moments) stay in the 50 MB
+    L2: the rate a streaming pass over L2-resident state can reach."""
+    src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return 2.0 * nbytes / (cuda_time_ms(lambda: dst.copy_(src), iters=100, warmup=10) * 1e-3)
+
+
+def conv_library_ms(torch, which, prod, geom):
     """Yardstick only: the one PyTorch call for the same convolution, bf16,
     channels-last; never called by the port."""
     import torch.nn.functional as F
@@ -289,16 +324,16 @@ def conv_library_ms(torch, which, pr, geom):
     k, pad = (1, 0) if which.startswith("conv_sc") else (3, 1)
     cin, stride = (ci, s) if first else (co, 1)
     nchw = lambda t: t.permute(0, 3, 1, 2)  # a channels-last view of the NHWC operand
-    w4 = (pr["w"] if pr["w"] is not None else torch.zeros((k * k * cin, co), dtype=torch.bfloat16, device="cuda"))
+    w4 = (prod["w"] if prod["w"] is not None else torch.zeros((k * k * cin, co), dtype=torch.bfloat16, device="cuda"))
     w4 = w4.reshape(k, k, cin, co).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    dy4 = None if pr["dy"] is None else nchw(pr["dy"].reshape(b, geom.h_out, geom.h_out, co))
+    dy4 = None if prod["dy"] is None else nchw(prod["dy"].reshape(b, geom.h_out, geom.h_out, co))
     if which.endswith("_dw"):
-        x4 = nchw(pr["x"])
+        x4 = nchw(prod["x"])
         fn = lambda: torch.nn.grad.conv2d_weight(x4, w4.shape, dy4, stride=stride, padding=pad)
     elif which == "conv2_dx":
         fn = lambda: torch.nn.grad.conv2d_input((b, co, geom.h_out, geom.h_out), w4, dy4, stride=1, padding=1)
     else:
-        x4 = nchw(pr["x"])
+        x4 = nchw(prod["x"])
         fn = lambda: F.conv2d(x4, w4, stride=stride, padding=pad)
     return cuda_time_ms(fn), device_us(fn)["total"]
 
@@ -312,22 +347,22 @@ def phase_fused_products(torch, fis, geom, p_bf16, bank, bank_y, idx_t, w_t, fai
     prods = fis.step_products_reference(f32, bank[idx_t], bank_y[idx_t], w_t, geom)
     r = geom.rows
     for which in fis.PRODUCTS:
-        pr = prods[which]
-        ops = [None if pr[k] is None else pr[k].contiguous() for k in ("w", "x", "dy")]
+        prod = prods[which]
+        ops = [None if prod[k] is None else prod[k].contiguous() for k in ("w", "x", "dy")]
         got = fis.fused_product(which, *ops, geom)
         fma = fis.fused_product(which, *ops, geom, route="fma")
         torch.cuda.synchronize()
-        scale = float(pr["out"].abs().max())
-        err = float((got - pr["out"]).abs().max()) / scale
-        err_fma = float((fma - pr["out"]).abs().max()) / scale
-        flops = 2.0 * pr["out"].shape[0] * pr["out"].shape[1] * (r if which.endswith("_dw") else
-                                                                 (pr["w"].shape[0]))
+        scale = float(prod["out"].abs().max())
+        err = float((got - prod["out"]).abs().max()) / scale
+        err_fma = float((fma - prod["out"]).abs().max()) / scale
+        flops = 2.0 * prod["out"].shape[0] * prod["out"].shape[1] * (r if which.endswith("_dw") else
+                                                                 (prod["w"].shape[0]))
         us = cuda_time_ms(lambda: fis.fused_product(which, *ops, geom)) * 1e3
         us_fma = cuda_time_ms(lambda: fis.fused_product(which, *ops, geom, route="fma")) * 1e3
         dev = device_us(lambda: fis.fused_product(which, *ops, geom))
         dev_fma = device_us(lambda: fis.fused_product(which, *ops, geom, route="fma"))
         mma_us = sum(v for k, v in dev.items() if "_mma_kernel" in k)
-        lib_ms, lib_dev_us = conv_library_ms(torch, which, pr, geom)
+        lib_ms, lib_dev_us = conv_library_ms(torch, which, prod, geom)
         bound_us = flops / PEAK_BF16_FLOPS * 1e6
         print(f"fused_product {which} bf16 library (one torch conv call, bf16 channels-last; yardstick only): "
               f"{lib_ms * 1e3:.2f} us by CUDA events, {lib_dev_us:.2f} us on the device")
@@ -339,12 +374,12 @@ def phase_fused_products(torch, fis, geom, p_bf16, bank, bank_y, idx_t, w_t, fai
         if not (bool(torch.isfinite(got).all()) and err <= FUSED_PRODUCT_TOL and err_fma <= FUSED_PRODUCT_TOL):
             failures.append(f"product {which}")
         if which == "conv1_dw":  # the planted fault
-            pieces = fis._patches3x3(fis._pad_hw(pr["x"]), geom.stride)
+            pieces = fis._patches3x3(fis._pad_hw(prod["x"]), geom.stride)
             pad = (r + 63) // 64 * 64 - r
             a = torch.cat([torch.cat([pc, torch.ones((pad, pc.shape[1]), dtype=pc.dtype, device=pc.device)])
                            for pc in pieces], dim=1)
-            dy = torch.cat([pr["dy"], 1e-3 * torch.ones((pad, pr["dy"].shape[1]), dtype=pr["dy"].dtype,
-                                                        device=pr["dy"].device)])
+            dy = torch.cat([prod["dy"], 1e-3 * torch.ones((pad, prod["dy"].shape[1]), dtype=prod["dy"].dtype,
+                                                        device=prod["dy"].device)])
             faulty = fis._mm(a.t(), dy)
             reading = float((got - faulty).abs().max()) / scale
             caught = reading > FUSED_PRODUCT_TOL
@@ -576,6 +611,13 @@ def phase_fused_inner_scan(torch, dev):
           f"bound_ms={bound_ms:.3f}; the kernels take {ms / bound_ms:.1f} x that")
     print(f"{label}: f32 FMA bound of this design {b['ms_fma']:.3f} ms; the kernels reach {b['ms_fma'] / ms:.3f} of it "
           f"({b['flops'] / ms / 1e9:.2f} TFLOP/s)")
+    l2 = fused_step_l2_bytes(geom)
+    rate = l2_stream_rate(torch, dev)
+    l2_us = sum(l2.values()) / rate * 1e6
+    print(f"{label}: L2 traffic of one step of this design, from the shapes and the tiling: "
+          + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in l2.items())
+          + f"; {sum(l2.values()) / 1e6:.1f} MB in all -> {l2_us:.1f} us a step, {l2_us * n_steps / 1e3:.3f} ms for "
+          f"{n_steps} steps at {rate / 1e12:.3f} TB/s, the rate of a 22 MB device copy that stays in L2 (measured here)")
     print(f"{label}: if no cache kept the state, parameters and both moments in and out of device memory every step "
           f"would be {b['state_bytes'] / 1e9:.2f} GB, {b['ms_state']:.3f} ms (not the bound: the state fits L2)")
     return {

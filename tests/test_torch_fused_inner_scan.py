@@ -544,7 +544,7 @@ def _product_inputs(geom_id, cd_name):
     return geom, p, x, labels, w, prods, grads
 
 
-def _conv_f64(which, pr, geom):
+def _conv_f64(which, prod, geom):
     """The product by ``torch.nn.functional.conv2d`` (and its autograd) in
     f64 on the same operands, independent of the im2col form."""
     first = which.startswith(("conv1", "conv_sc"))
@@ -553,13 +553,13 @@ def _conv_f64(which, pr, geom):
     co, b = geom.c_out, geom.batch
     oihw = lambda m: m.double().reshape(k, k, cin, co).permute(3, 2, 0, 1)
     rows = lambda t: t.permute(0, 2, 3, 1).reshape(-1, t.shape[1])  # NCHW -> [rows, C]
-    w4 = (oihw(pr["w"]) if pr["w"] is not None else torch.zeros(co, cin, k, k, dtype=torch.float64)).requires_grad_()
-    x4 = (pr["x"].double().permute(0, 3, 1, 2) if pr["x"] is not None
+    w4 = (oihw(prod["w"]) if prod["w"] is not None else torch.zeros(co, cin, k, k, dtype=torch.float64)).requires_grad_()
+    x4 = (prod["x"].double().permute(0, 3, 1, 2) if prod["x"] is not None
           else torch.zeros(b, cin, hin, hin, dtype=torch.float64)).requires_grad_()
     y = torch.nn.functional.conv2d(x4, w4, stride=stride, padding=pad)
-    if pr["dy"] is None:
+    if prod["dy"] is None:
         return rows(y).detach()
-    dy4 = pr["dy"].double().reshape(b, geom.h_out, geom.h_out, co).permute(0, 3, 1, 2)
+    dy4 = prod["dy"].double().reshape(b, geom.h_out, geom.h_out, co).permute(0, 3, 1, 2)
     gx, gw = torch.autograd.grad(y, (x4, w4), dy4)
     return rows(gx) if which == "conv2_dx" else gw.permute(2, 3, 1, 0).reshape(k * k * cin, co)
 
@@ -573,12 +573,12 @@ def test_step_products_recombine_to_step_grads(geom_id, cd):
     assert set(prods) == set(tfis.PRODUCTS)
     for key, which in (("conv1", "conv1_dw"), ("conv2", "conv2_dw"), ("conv_sc", "conv_sc_dw")):
         assert torch.equal(prods[which]["out"], grads[key]), which
-    for which, pr in prods.items():
+    for which, prod in prods.items():
         shapes = tfis.product_shapes(which, geom)
-        assert pr["out"].dtype == torch.float32 and tuple(pr["out"].shape) == shapes["out"]
+        assert prod["out"].dtype == torch.float32 and tuple(prod["out"].shape) == shapes["out"]
         for k in ("w", "x", "dy"):
-            assert (pr[k] is None) == (shapes[k] is None), (which, k)
-            assert pr[k] is None or (tuple(pr[k].shape) == shapes[k] and pr[k].dtype == getattr(torch, cd))
+            assert (prod[k] is None) == (shapes[k] is None), (which, k)
+            assert prod[k] is None or (tuple(prod[k].shape) == shapes[k] and prod[k].dtype == getattr(torch, cd))
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
@@ -595,12 +595,12 @@ def test_products_match_f64_conv(which, cd):
 @pytest.mark.parametrize("which", tfis.PRODUCTS)
 def test_fused_product_on_cpu_is_the_plain_product(which, cd):
     geom, _, _, _, _, prods, _ = _product_inputs("stride2", cd)
-    pr = prods[which]
+    prod = prods[which]
     before = tfis.LAUNCHES
-    got = tfis.fused_product(which, pr["w"], pr["x"], pr["dy"], geom)
-    fma = tfis.fused_product(which, pr["w"], pr["x"], pr["dy"], geom, route="fma")
+    got = tfis.fused_product(which, prod["w"], prod["x"], prod["dy"], geom)
+    fma = tfis.fused_product(which, prod["w"], prod["x"], prod["dy"], geom, route="fma")
     assert tfis.LAUNCHES == before
-    assert got.dtype == torch.float32 and torch.equal(got, pr["out"]) and torch.equal(fma, pr["out"])
+    assert got.dtype == torch.float32 and torch.equal(got, prod["out"]) and torch.equal(fma, prod["out"])
 
 
 @pytest.mark.parametrize("key,which", [("conv1", "conv1_dw"), ("conv2", "conv2_dw"), ("conv_sc", "conv_sc_dw")])
@@ -641,17 +641,17 @@ def test_bias_corrections_follow_the_kernels_f32_formula(beta):
 
 def test_fused_product_refusals():
     geom, _, _, _, _, prods, _ = _product_inputs("stride2", "float32")
-    pr = prods["conv2_dw"]
+    prod = prods["conv2_dw"]
     with pytest.raises(ValueError, match="which"):
-        tfis.fused_product("conv3", None, pr["x"], pr["dy"], geom)
+        tfis.fused_product("conv3", None, prod["x"], prod["dy"], geom)
     with pytest.raises(ValueError, match="operand"):
-        tfis.fused_product("conv2_dw", prods["conv2"]["w"], pr["x"], pr["dy"], geom)  # a weight gradient takes no w
+        tfis.fused_product("conv2_dw", prods["conv2"]["w"], prod["x"], prod["dy"], geom)  # a weight gradient takes no w
     with pytest.raises(ValueError, match="operand"):
-        tfis.fused_product("conv2_dw", None, pr["x"][:, :1], pr["dy"], geom)
+        tfis.fused_product("conv2_dw", None, prod["x"][:, :1], prod["dy"], geom)
     with pytest.raises(TypeError, match="dtype"):
-        tfis.fused_product("conv2_dw", None, pr["x"].bfloat16(), pr["dy"], geom)
+        tfis.fused_product("conv2_dw", None, prod["x"].bfloat16(), prod["dy"], geom)
     with pytest.raises(ValueError, match="route"):
-        tfis.fused_product("conv2_dw", None, pr["x"], pr["dy"], geom, route="tensor_cores")
+        tfis.fused_product("conv2_dw", None, prod["x"], prod["dy"], geom, route="tensor_cores")
     p, bank, y, ti, tw = _torch_inputs()
     with pytest.raises(ValueError, match="route"):
         tfis.fused_step_grads(p, bank, y, ti[1], tw[1], geom=TGEOM, route="auto")
