@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mft_tpu_torch``) on one NVIDIA card.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs a
+Run from the root of a checkout: ``python3 chip_smoke.py`` (``--kernels-only`` stops after phase 3).  It needs a
 CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and nothing else
 of the JAX package; it imports no ``jax``.  Phases, any failure exits
 non-zero:
@@ -16,7 +16,12 @@ non-zero:
    kernel, and the fused inner scan (one step's gradients, the update rule
    step by step on both lanes of a two-lane call, a 20-step scan with f32
    and bf16 carry on one and two lanes with planted faults beside it to
-   show what its bound catches, the full 500-step scan);
+   show what its bound catches; each of the seven tensor-core products of a
+   step alone against the plain product, timed beside the PyTorch
+   convolution call, with a planted fault of its own; one step's gradients
+   by the tensor-core route against the FMA route; the full 500-step scan
+   with the host's enqueue time, the device time per kernel and the step's
+   L2 traffic beside it);
 4. check the eval on the card against the same eval on the CPU at a small
    size (strict f32 with the eager inner loop; then the fused scan on the
    card against its plain version on the CPU), few inner steps;
@@ -311,7 +316,8 @@ def l2_stream_rate(torch, dev, nbytes: int = 11 << 20) -> float:
     L2: the rate a streaming pass over L2-resident state can reach."""
     src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(src)
-    return 2.0 * nbytes / (cuda_time_ms(lambda: dst.copy_(src), iters=100, warmup=10) * 1e-3)
+    # device time from the profiler: by CUDA events a 9 us copy reads as the host's launch rate
+    return 2.0 * nbytes / (device_us(lambda: dst.copy_(src), iters=50)["total"] * 1e-6)
 
 
 def conv_library_ms(torch, which, prod, geom):
@@ -387,6 +393,53 @@ def phase_fused_products(torch, fis, geom, p_bf16, bank, bank_y, idx_t, w_t, fai
                   f"rows): {reading:.3e} against {FUSED_PRODUCT_TOL:g}: {'caught' if caught else 'passes'}")
             if not caught:
                 failures.append(f"the product check with {FUSED_PRODUCT_FAULT}")
+
+
+#: other geometries the tensor-core kernels must take: stride 1, more rows
+#: than one BN thread row (256), fewer rows than one 64-row tile, and a
+#: shortcut weight (64 rows) smaller than a 128 x 128 weight-gradient tile
+FUSED_OTHER_GEOMS = ((8, 64, 128, 1, 7), (6, 128, 256, 2, 3))
+
+
+def phase_fused_other_geometries(torch, fis, dev, failures):
+    """bf16 bank and carry at FUSED_OTHER_GEOMS: one step's gradients against
+    the plain version (the bf16 rule), and two scan steps against the plain
+    Adam update of the scan's own state and gradients (the replay rule)."""
+    tol, allowed, rtol = FUSED_GRAD_TOL["bfloat16"], FUSED_GRAD_FLIP_CHANNELS["bfloat16"], FUSED_REPLAY_RTOL["bfloat16"]
+    for dims in FUSED_OTHER_GEOMS:
+        geom, span = fis.BlockGeom(*dims), 12
+        gen = torch.Generator(device=dev).manual_seed(2)
+        randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        p = {k: ((randn(*shape) * (2.0 / shape[0]) ** 0.5) if k.startswith("conv")
+                 else (randn(*shape) * 0.1 + (1.0 if k.endswith("_s") else 0.0))).to(torch.bfloat16)
+             for k, shape in fis.param_shapes(geom).items()}
+        bank = torch.relu(randn(span, geom.h_in, geom.h_in, geom.c_in)).to(torch.bfloat16)
+        bank_y = torch.arange(span, device=dev) % 3
+        idx = torch.stack([torch.randperm(span, generator=torch.Generator().manual_seed(t))[:geom.batch]
+                           for t in range(2)]).to(dev)
+        w = torch.ones((2, geom.batch), device=dev)
+        w[1, -1] = 0.0
+        state, mu, nu = p, *({k: torch.zeros_like(v) for k, v in p.items()} for _ in range(2))
+        for t in range(2):
+            got, _ = fis.fused_step_grads(state, bank, bank_y, idx[t], w[t], geom=geom)
+            want, _ = fis.step_grads_reference({k: v.float() for k, v in state.items()}, bank[idx[t]], bank_y[idx[t]],
+                                               w[t], geom)
+            errs = {k: (got[k] - want[k]).abs().reshape(-1, want[k].shape[-1]).amax(dim=0)
+                    / want[k].abs().max().clamp(min=1e-30) for k in fis.PKEYS}
+            worst = max(float(e.max()) for e in errs.values())
+            over = max(int((e > tol).sum()) for e in errs.values())
+            after = fis.fused_inner_scan(p, bank, bank_y, idx[: t + 1], w[: t + 1], geom=geom, lr=0.01)
+            mine, mu, nu = fis.adam_update_reference(state, mu, nu, got, t + 1, 0.01)
+            torch.cuda.synchronize()
+            close = min(float(((after[k].float() - mine[k].float()).abs() <= 1e-7 + rtol * mine[k].float().abs())
+                              .float().mean()) for k in fis.PKEYS)
+            print(f"fused scan at {geom}, bf16, step {t + 1}: worst gradient error / max = {worst:.3e} (tol {tol:g}, "
+                  f"most channels of a tensor above it {over}, allowed {allowed}); update vs the plain Adam update of "
+                  f"its own state and gradients: share within rtol {rtol:g} >= {close:.5f}")
+            if not (over <= allowed and worst <= FUSED_GRAD_FLIP_TOL and close >= FUSED_REPLAY_SHARE
+                    and all(bool(torch.isfinite(v).all()) for v in after.values())):
+                failures.append(f"{geom} step {t + 1}")
+            state = after
 
 
 def phase_fused_inner_scan(torch, dev):
@@ -547,6 +600,7 @@ def phase_fused_inner_scan(torch, dev):
     p16 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
     banks = banks32.to(torch.bfloat16)
     phase_fused_products(torch, fis, geom, lane(p16, 0), banks[0], bank_y, idx[3], w_masked[3], failures)
+    phase_fused_other_geometries(torch, fis, dev, failures)
     tol, allowed = FUSED_GRAD_TOL["bfloat16"], FUSED_GRAD_FLIP_CHANNELS["bfloat16"]
     for label, p_at in (("bf16 carry", lane(p16, 0)), ("f32 carry, bf16 bank", lane(p32, 0))):
         # one step's gradients by both routes on the card; the f32 carry also against the plain version

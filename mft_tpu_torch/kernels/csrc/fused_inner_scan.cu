@@ -18,11 +18,15 @@
 // tensor-core rate (H100 SXM, 989 TFLOP/s).  That bound is out of reach at
 // one lane: with 245 rows a step is a chain of eight dependent small kernels,
 // each a fraction of a wave on 132 SMs, that pass the lane's state (7.3 MB
-// of bf16 parameters, 14.7 MB of moments, 14.7 MB of f32 gradients) and the
-// split-K partial sums through L2.  What the design does about it: the seven
-// products run on the tensor cores from bf16 operands stored as bf16, every
-// pass over rows or parameters moves 16 bytes a thread on at least 128
-// blocks, and kernels that share inputs share a launch.
+// of bf16 parameters, 14.7 MB of moments), the operand tiles (once per
+// output tile) and the split-K partial sums through L2: about 176 MB a step
+// (chip_smoke.py computes it from the shapes and this tiling).  What the
+// design does about it: the seven products run on the tensor cores from bf16
+// operands stored as bf16, every pass over rows or parameters moves 16 bytes
+// a thread on at least 128 blocks, kernels that share inputs share a launch,
+// the conv gradients go from the accumulators into the Adam update without
+// touching memory, and each kernel is a programmatic dependent launch, so
+// that no gap is left between one kernel's end and the next one's start.
 //
 // A step with a bf16 bank (the tensor-core route), 8 kernels:
 //   1  conv_mma<0, TagConv1ScFwd>  conv1 and the 1x1 shortcut conv (the
@@ -55,11 +59,11 @@
 // no split.  conv2's input gradient reads W2 with the reduction index
 // contiguous (K-major B).  No reduction uses atomics: results repeat bit for
 // bit.  With an f32 carry the products read a bf16 copy of the weights that
-// the Adam kernel writes beside the f32 parameters.
+// the Adam update writes beside the f32 parameters.
 //
 // An f32 bank (the strict-parity path) keeps the f32 FMA products on the CUDA
 // cores (64 x 64 tiles, 4 x 4 a thread; no TF32), 12 kernels a step, with the
-// same BN, loss and Adam kernels.  fused_step_grads_* and
+// same BN and loss kernels and Adam as a kernel of its own.  fused_step_grads_* and
 // fused_inner_scan_product take a route argument (1 = FMA) so that a check
 // can run the FMA products on bf16 operands; the scan has none.
 //
@@ -192,8 +196,7 @@ __device__ __forceinline__ F8 ld8(const float* p, size_t i) {
   const float4 a = ld4(p, i), b = ld4(p, i + 4);
   return F8{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
 }
-__device__ __forceinline__ F8 ld8(const bf16* p, size_t i) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p + i);
+__device__ __forceinline__ F8 unpack8(const uint4& u) {  // eight packed bf16
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
   F8 r;
 #pragma unroll
@@ -204,6 +207,7 @@ __device__ __forceinline__ F8 ld8(const bf16* p, size_t i) {
   }
   return r;
 }
+__device__ __forceinline__ F8 ld8(const bf16* p, size_t i) { return unpack8(*reinterpret_cast<const uint4*>(p + i)); }
 __device__ __forceinline__ void st8(float* p, size_t i, const F8& r) {
   st4(p, i, make_float4(r.v[0], r.v[1], r.v[2], r.v[3]));
   st4(p, i + 4, make_float4(r.v[4], r.v[5], r.v[6], r.v[7]));
