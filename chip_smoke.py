@@ -12,8 +12,13 @@ non-zero:
    the ptxas resource report;
 3. hold every kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (random inputs from a seeded generator),
-   with the stated tolerance, and time both with CUDA events: the GNN edge
-   kernel, and the fused inner scan (one step's gradients, the update rule
+   with the stated tolerance, and time both: the GNN edge kernel (the main
+   path's three widths, the 50-shot graph and ragged shapes; device time by
+   the profiler beside the wrapper's CUDA-event time, the bound of its
+   tensor-core route beside the f32 one, a planted one-term bf16 fault, the
+   HGMMA count of its library, cuBLAS's f32 product on the materialized
+   edges as a yardstick, 64-row against 128-row tiles), and the fused inner
+   scan (one step's gradients, the update rule
    step by step on both lanes of a two-lane call, a 20-step scan with f32
    and bf16 carry on one and two lanes with planted faults beside it to
    show what its bound catches; each of the seven tensor-core products of a
@@ -190,30 +195,69 @@ def report_build(name: str, log: str, build_dir):
     spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
     print(f"[{name}] ptxas: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
           f"{sum(1 for v in spills if v)} with spills")
+    for line in [line for line in log.splitlines() if "warning" in line.lower()][:6]:
+        print(f"[{name}] {line.strip()[:200]}")
     with open(os.path.join(build_dir, f"build_{name}.log"), "w") as f:
         f.write(log)
 
 
-def edge_bound_ms(b, n, f, c):
-    """Least time for one call: f32 operations (the product, the
-    |x_i - x_j| edge values, the bias) over the f32 peak, or bytes (x, w,
-    bias read once; out written once) over the memory rate."""
-    flops = 2.0 * b * n * n * f * c + 2.0 * b * n * n * f + b * n * n * c
+def edge_bound_ms(b, n, f, c, route: str = "bf16x3"):
+    """Least time for one call: bytes (x, w, bias read once; out written
+    once) over the memory rate, or the operations of the route over its
+    peak.  ``"bf16x3"``, the kernel's: three bf16 products (hi*hi, hi*lo,
+    lo*hi) with F padded to the wgmma's depth of 16 at the bf16 tensor-core
+    peak.  ``"f32"``: the product, the |x_i - x_j| edge values and the bias
+    as f32 FMAs on the CUDA cores.  Returns (ms, what binds it)."""
+    if route == "bf16x3":
+        flops, peak = 3 * 2.0 * b * n * n * (-(-f // 16) * 16) * c, PEAK_BF16_FLOPS
+    else:
+        flops, peak = 2.0 * b * n * n * f * c + 2.0 * b * n * n * f + b * n * n * c, PEAK_F32_FLOPS
     nbytes = 4.0 * (b * n * f + c * f + c + b * n * n * c)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_edge_kernel(torch, dev):
-    from mft_tpu_torch.kernels import edge_mlp
+def sass_count(lib, op: str) -> int:
+    """Lines of the built library's SASS (cuobjdump from the CUDA toolkit) that hold ``op``."""
+    from mft_tpu_torch.kernels import build
 
-    # 5-shot main path: B = 15 query graphs of N = 30 nodes, the three
-    # Wcompute widths F; plus the 50-shot N = 130 graph
-    cases = [(15, 30, 133, 192), (15, 30, 181, 192), (15, 30, 229, 192), (15, 130, 229, 192)]
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=False)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed on {lib}: {res.stderr.strip()[:300]}")
+    return sum(op in line for line in res.stdout.splitlines())
+
+
+#: 5-shot main path: B = 15 query graphs of N = 30 nodes, the three Wcompute
+#: widths F, C = 192 (one episode's three calls)
+EDGE_MAIN = ((15, 30, 133, 192), (15, 30, 181, 192), (15, 30, 229, 192))
+#: besides: the 50-shot N = 130 graph; rows not a multiple of 64 with C and F
+#: under one tile; F a multiple of 64; one graph; the three-query graph of
+#: phase 4
+EDGE_OTHER = ((15, 130, 229, 192), (3, 7, 5, 8), (15, 30, 128, 192), (1, 30, 229, 192), (3, 30, 133, 192))
+#: a fault the edge check must catch: one bf16 product, the split's lo terms
+#: dropped (emulated in plain torch on the card)
+EDGE_FAULT = "one bf16 product, lo terms dropped"
+
+
+def phase_edge_kernel(torch, dev):
+    """The edge kernel against its f32 plain version at EDGE_MAIN and
+    EDGE_OTHER, with device times (profiler) beside the wrapper's CUDA-event
+    time, the route's bound and the f32 one, the plain version, cuBLAS's f32
+    product on the materialized edges (yardstick only), 64-row tiles against
+    the default 128, the planted one-term fault, and the HGMMA count of the
+    built library."""
+    from mft_tpu_torch.kernels import build, edge_mlp
+
+    hgmma = sass_count(build.lib_path("edge_mlp"), "HGMMA")
+    print(f"edge_mlp library: {hgmma} HGMMA instructions in its SASS (tensor-core products)")
+    if hgmma <= 0:
+        fail("the edge kernel's library has no HGMMA instruction: its products do not run on the tensor cores")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst_abs, main = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    bound_by = set()
-    for b, n, f, c in cases:
+    bound_by = {"bytes": 0.0, "operations": 0.0}  # the main calls' bounds, summed by what binds each
+    for b, n, f, c in EDGE_MAIN + EDGE_OTHER:
+        label = f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}"
         x = torch.randn((b, n, f), generator=gen, device=dev)
         w = torch.randn((c, f), generator=gen, device=dev) * 0.05
         bias = torch.randn((c,), generator=gen, device=dev)
@@ -225,35 +269,66 @@ def phase_edge_kernel(torch, dev):
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
             fail(f"edge kernel produced non-finite values at {(b, n, f, c)}")
+        scale = max(float(ref.abs().max()), 1e-30)
         abs_err = float((out - ref).abs().max())
-        rel_err = abs_err / max(float(ref.abs().max()), 1e-30)
-        ms = cuda_time_ms(lambda: edge_mlp.edge_abs_diff_matmul(x, w, bias))
-        plain_ms = cuda_time_ms(lambda: edge_mlp.edge_abs_diff_matmul_reference(x, w, bias))
-        bms, by = edge_bound_ms(b, n, f, c)
-        print(f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
-              f"(tol rel {EDGE_REL_TOL:g})")
-        print(f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}: kernel_ms={ms:.5f}")
-        print(f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}: plain_ms={plain_ms:.5f}")
-        print(f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}: bound_ms={bms:.5f} ({by})")
+        rel_err = abs_err / scale
+        emul = float((out - edge_mlp.edge_abs_diff_matmul_split_reference(x, w, bias)).abs().max()) / scale
+        print(f"{label}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} (tol rel {EDGE_REL_TOL:g}); against "
+              f"the plain emulation of its three-term split {emul:.3e}")
         if not rel_err <= EDGE_REL_TOL:
             fail(f"edge kernel disagrees with its plain version at {(b, n, f, c)}: rel {rel_err:.3e}")
         worst_abs = max(worst_abs, abs_err)
-        if n == 30:  # one episode's three launches
-            main["ms"] += ms
-            main["plain_ms"] += plain_ms
-            main["bound_ms"] += bms
-            bound_by.add(by)
+        if (b, n, f, c) in EDGE_MAIN:  # the planted fault, on the same inputs
+            one = edge_mlp.edge_abs_diff_matmul_split_reference(x, w, bias, terms=1)
+            reading = float((one - ref).abs().max()) / scale
+            caught = reading > EDGE_REL_TOL
+            print(f"{label}: plain version with a planted fault ({EDGE_FAULT}): {reading:.3e} against "
+                  f"{EDGE_REL_TOL:g}: {'caught' if caught else 'passes'}; the kernel {rel_err:.3e}")
+            if not caught:
+                fail(f"the edge check does not catch {EDGE_FAULT} at {(b, n, f, c)}")
+        dev_us = device_us(lambda: edge_mlp.edge_abs_diff_matmul(x, w, bias))
+        wrapper_ms = cuda_time_ms(lambda: edge_mlp.edge_abs_diff_matmul(x, w, bias))
+        ms = dev_us["total"] * 1e-3
+        bms, by = edge_bound_ms(b, n, f, c)
+        f32_bms, f32_by = edge_bound_ms(b, n, f, c, route="f32")
+        print(f"{label}: kernel device_ms={ms:.5f} ("
+              + ", ".join(f"{short_name(k)} {v:.2f} us" for k, v in dev_us.items() if k != "total")
+              + f"); wrapper's time by CUDA events {wrapper_ms:.5f} ms (host launch cost included)")
+        print(f"{label}: bound_ms={bms:.5f} ({by}; three bf16 products on the tensor cores), f32 CUDA-core bound "
+              f"{f32_bms:.5f} ({f32_by}); the kernel takes {ms / bms:.2f} x its bound")
+        if n == 130 or (b, n, f, c) in EDGE_MAIN:
+            plain_us = device_us(lambda: edge_mlp.edge_abs_diff_matmul_reference(x, w, bias))["total"]
+            e = (x[:, :, None, :] - x[:, None, :, :]).abs()
+            cublas_us = device_us(lambda: torch.matmul(e, w.t()))["total"]
+            del e
+            tile64_us = device_us(lambda: edge_mlp._launch(x, w, bias, tile_rows=64))["total"]
+            print(f"{label}: plain device_ms={plain_us * 1e-3:.5f} (by CUDA events "
+                  f"{cuda_time_ms(lambda: edge_mlp.edge_abs_diff_matmul_reference(x, w, bias)):.5f}); yardstick: "
+                  f"cuBLAS f32 product alone on the materialized edges (torch.matmul, TF32 off) "
+                  f"{cublas_us * 1e-3:.5f} ms on the device")
+            print(f"{label}: W re-read: 128-row tiles (two warpgroups share each W stage; default) "
+                  f"{dev_us['total']:.2f} us, 64-row tiles {tile64_us:.2f} us on the device")
+            if (b, n, f, c) in EDGE_MAIN:  # one episode's three launches
+                main["ms"] += ms
+                main["plain_ms"] += plain_us * 1e-3
+                main["bound_ms"] += bms
+                bound_by[by] += bms
+    print(f"edge_abs_diff_matmul, one episode's three calls: device {main['ms']:.5f} ms, plain {main['plain_ms']:.5f} "
+          f"ms, bound {main['bound_ms']:.5f} ms ({bound_by['bytes']:.5f} of it by bytes, {bound_by['operations']:.5f} "
+          f"by operations), f32 CUDA-core bound "
+          f"{sum(edge_bound_ms(*case, route='f32')[0] for case in EDGE_MAIN):.5f} ms")
     return {
         "name": "edge_abs_diff_matmul",
         "route": "cuda",
         "source": "mft_tpu_torch/kernels/csrc/edge_mlp.cu",
         "replaces": "mft_tpu/ops/pallas/edge_mlp.py:61",
         "max_abs_err": worst_abs,
-        # the times are one episode's three calls (F = 133, 181, 229) summed
+        # one episode's three calls (F = 133, 181, 229) summed, device time
+        # (W's split pass and the product kernel); plain likewise
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
-        "bound_by": bound_by.pop() if len(bound_by) == 1 else "operations",
+        "bound_by": max(bound_by, key=bound_by.get),
         "library_ms": None,  # no single PyTorch call computes |x_i - x_j| @ W
     }
 
@@ -772,7 +847,7 @@ def drive(finetune, label: str, argv, episodes: int) -> float:
     return sum(steady) / len(steady)
 
 
-def phase_profile(torch, finetune, argv, steady_s: float):
+def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int):
     """One more main-path episode under ``torch.profiler``: the symbols of
     the edge kernel and of the fused scan's kernels must be on the device
     timeline.  Prints where the time
@@ -795,10 +870,15 @@ def phase_profile(torch, finetune, argv, steady_s: float):
     busy_us = sum(e.self_device_time_total for e in on_device)
     if busy_us == 0:
         fail("the profiler recorded no device time, so it cannot show the edge kernel on the main path")
-    edge_us = sum(e.self_device_time_total for e in on_device if "edge_abs_diff_matmul_kernel" in e.key)
+    edge = [e for e in on_device if "edge_abs_diff_matmul_kernel" in e.key]
+    edge_us, edge_n = sum(e.self_device_time_total for e in edge), sum(e.count for e in edge)
     if edge_us == 0:
         fail("the profiler traced device kernels but not the edge kernel")
-    print(f"profiler: edge kernel on the device timeline, {edge_us / 1e3:.4f} ms device time in one episode")
+    if edge_n != edge_per_episode:
+        fail(f"the profiled episode ran the edge kernel {edge_n} times, the main path {edge_per_episode} an episode")
+    split_us = sum(e.self_device_time_total for e in on_device if "edge_split_w_kernel" in e.key)
+    print(f"profiler: edge kernel on the device timeline, {edge_n} launches, {edge_us / 1e3:.4f} ms device time in "
+          f"one episode (W's split passes {split_us / 1e3:.4f} ms besides)")
     scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAllAdam", "bn_fwd_kernel", "bn_bwd_kernel")
     scan_us = {sym: sum(e.self_device_time_total for e in on_device if sym in e.key) for sym in scan_symbols}
     if min(scan_us.values()) == 0:
@@ -881,7 +961,7 @@ def main():
         print(f"seconds/episode fused {steady:.4f} vs eager {eager:.4f} (same call): eager / fused = {eager / steady:.3f}")
         # the strict-parity numerics at the same width
         drive(finetune, "strict f32 path", common + ["--dtype", "float32", "--inner_param_dtype", "float32"], 2)
-        phase_profile(torch, finetune, argv, steady)
+        phase_profile(torch, finetune, argv, steady, counts["edge_abs_diff_matmul"] // EPISODES)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms"]

@@ -2,12 +2,17 @@
 
 Port of the TPU kernel ``mft_tpu/ops/pallas/edge_mlp.py:edge_abs_diff_matmul``
 as a hand-written CUDA kernel (``csrc/edge_mlp.cu``, which documents its
-design and bound).  ``w`` is in torch layout ``[C, F]``.
+design and bound).  ``w`` is in torch layout ``[C, F]``.  f32 in, f32 out:
+the kernel's products run on the tensor cores as the three-term bf16 split
+``hi*hi + hi*lo + lo*hi`` (:func:`split_bf16`), which
+:func:`edge_abs_diff_matmul_split_reference` emulates in plain torch.
 
 * On a CUDA tensor, :func:`edge_abs_diff_matmul` launches the kernel or
-  raises; it never falls back.  Its gradient is a ``torch.autograd.Function``
-  whose backward is the plain-torch form of the JAX custom VJP
-  (``_edge_bwd``, itself plain XLA on the TPU).
+  raises; it never falls back.  One call is two device kernels, W's split
+  pass and the product, and counts as one launch in ``LAUNCHES``.  Its
+  gradient is a ``torch.autograd.Function`` whose backward is the
+  plain-torch form of the JAX custom VJP (``_edge_bwd``, itself plain XLA on
+  the TPU).
 * On a CPU tensor it computes :func:`edge_abs_diff_matmul_reference`, the
   plain version the tests hold against JAX and ``chip_smoke.py`` holds the
   kernel against on the card.
@@ -21,12 +26,49 @@ import torch
 
 #: launches of the CUDA kernel in this process (read by chip_smoke.py)
 LAUNCHES = 0
+#: flattened (b, i, j) rows a block owns: 128, two warpgroups sharing each
+#: stage of W, which the H100 runs faster than 64 (PERF.md); 64 stays
+#: for chip_smoke.py to time that choice again
+TILE_ROWS = 128
+#: the reduction runs in stages of 64 bf16 (one 128-byte swizzle row)
+_KB = 64
 
 
 def edge_abs_diff_matmul_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: the ``[B, N, N, F]`` edge tensor, then a matmul."""
     e = (x[:, :, None, :] - x[:, None, :, :]).abs()
     return torch.matmul(e, w.t()) + b
+
+
+def split_bf16(t: torch.Tensor):
+    """``(hi, lo)`` bf16 with ``hi = bf16(t)``, ``lo = bf16(t - hi)`` (round
+    to nearest, as the kernel splits): ``hi + lo`` is ``t`` to 2**-16."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def edge_abs_diff_matmul_split_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                                         terms: int = 3) -> torch.Tensor:
+    """Plain emulation of the kernel's arithmetic, for tests and
+    ``chip_smoke.py``: edges and ``w`` split by :func:`split_bf16`, the
+    products ``hi*hi + hi*lo + lo*hi`` (each exact in f32) summed in f32.
+    ``terms=1`` keeps ``hi*hi`` alone: the single bf16 product the kernel
+    does not use, because it misses the f32 tolerance."""
+    e_hi, e_lo = split_bf16((x[:, :, None, :] - x[:, None, :, :]).abs())
+    w_hi, w_lo = split_bf16(w)
+    mm = lambda a, c: torch.matmul(a.float(), c.float().t())
+    out = mm(e_hi, w_hi)
+    if terms == 3:
+        out = out + mm(e_hi, w_lo) + mm(e_lo, w_hi)
+    elif terms != 1:
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    return out + b
+
+
+def split_scratch_shape(f: int, c: int) -> tuple:
+    """Shape of the bf16 scratch for W's split: ``(2, 64 * ceil(c / 64),
+    f rounded up to 64)``, hi rows then lo rows, zero past ``c`` and ``f``."""
+    return 2, -(-c // 64) * 64, -(-f // _KB) * _KB
 
 
 def _edge_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
@@ -41,7 +83,7 @@ def _edge_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     return dx, dw, g.sum(dim=(0, 1, 2))
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile_rows: int = TILE_ROWS) -> torch.Tensor:
     global LAUNCHES
     from mft_tpu_torch.kernels.build import load
 
@@ -51,8 +93,12 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = w.shape[0]
     if w.shape[1] != f or b.shape[0] != c:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if bsz > 65535:  # one grid row (blockIdx.z) per graph
-        raise ValueError(f"at most 65535 graphs per call, got {bsz}")
+    if c > 256:  # all channels in one wgmma of at most 256 columns
+        raise ValueError(f"at most 256 output channels, got {c}")
+    if tile_rows not in (64, 128):
+        raise ValueError(f"tile_rows must be 64 or 128, got {tile_rows}")
+    if max(bsz * n * n, x.numel()) >= 2**31:  # the kernel indexes rows and x with int
+        raise ValueError(f"too large for one call: x {tuple(x.shape)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
@@ -63,12 +109,14 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bsz, n, n, c), device=x.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    wsplit = torch.empty(split_scratch_shape(f, c), device=x.device, dtype=torch.bfloat16)
     fn = load("edge_mlp").edge_abs_diff_matmul_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCHES += 1
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, n, f, c, stream)
+    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), wsplit.data_ptr(), bsz, n, f, c, tile_rows,
+             stream)
     if err != 0:
         raise RuntimeError(f"edge_abs_diff_matmul_f32 launch failed: cudaError {err}")
     return out
