@@ -17,14 +17,15 @@
 // 1e-4 the f32 reference is held to.
 //
 // What bounds it: at the 5-shot eval shapes (B = 15 query graphs of N = 30
-// nodes, C = 192, F = 133 / 181 / 229, three calls an episode) the three
-// bf16 products with F padded to 16 are 8.96 GFLOP, 9.06 us at the 989
-// TFLOP/s bf16 peak, and the f32 output alone is 31.1 MB, 9.3 us at 3.35
-// TB/s: the calls are bound by bytes, about 9.7 us for the three (the same
-// work as f32 FMAs on the CUDA cores would be bound at 42 us).  At N = 130
-// one call is bound by operations, 71 us.
+// nodes, C = 192, F = 133 / 181 / 229, three calls an episode) the f32
+// output alone is 31.1 MB, 9.3 us at 3.35 TB/s, and the function's one
+// product over F is 2.8 GFLOP, 2.85 us at the 989 TFLOP/s bf16 peak: the
+// calls are bound by bytes, about 9.7 us for the three.  At N = 130 one call
+// is bound by bytes too, 58 us.  This route's own work is more: its three
+// bf16 products with F padded to 16 take 9.06 us for the three calls and
+// 71 us at N = 130; the same product as f32 FMAs on the CUDA cores, 42 us.
 //
-// Design.  A block owns a tile of 64 * WGS flattened (b, i, j) rows (WGS
+// Design.  A block owns a tile of 128 flattened (b, i, j) rows (WGS = 2
 // consumer warpgroups of 64 rows; rows run across graphs, a row past
 // B * N * N is masked) and all C output channels, so the edge tile is built
 // once: NT = ceil(C / 64) and one wgmma.mma_async m64n(64 NT)k16 per product
@@ -49,9 +50,8 @@
 //    tile's rows of out are contiguous), rows past the edge masked.
 // One stage at C = 192 and 128 rows is A hi + lo 32 KB and B hi + lo 48 KB;
 // two stages are 160 KB, one block an SM.  W is re-read from L2 by every
-// block (147-197 KB a block at C = 192): two warpgroups sharing each W stage
-// (128-row tiles, WGS = 2) halve that against 64-row tiles (WGS = 1); both
-// forms are built and chip_smoke.py times them.
+// block (147-197 KB a block at C = 192): the two warpgroups sharing each W
+// stage halve that against 64-row tiles, which the H100 ran 20-32 % slower.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC
 // (mft_tpu_torch/kernels/build.py); bound with ctypes through the plain C
@@ -67,6 +67,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int KB = 64;                 // reduction elements per stage (128 bytes of bf16)
+constexpr int WGS = 2;                 // consumer warpgroups a block, 64 rows each
 constexpr int A_BYTES = 64 * KB * 2;   // one operand tile of 64 rows
 constexpr int SPLIT_THREADS = 256;
 
@@ -319,23 +320,23 @@ edge_split_w_kernel(const float* __restrict__ w, bf16* __restrict__ whi, bf16* _
   *reinterpret_cast<uint32_t*>(wlo + static_cast<size_t>(c) * kpad + k) = lo;
 }
 
-template <int NT, int WGS>
+template <int NT>
 __host__ __device__ constexpr int stage_bytes() {
   return 2 * WGS * A_BYTES + 2 * 64 * NT * KB * 2;  // A hi, lo of each warpgroup; B hi, lo
 }
-template <int NT, int WGS>
+template <int NT>
 __host__ __device__ constexpr int smem_bytes() {
-  return 2 * stage_bytes<NT, WGS>() + 1024;  // two stages, and room to align the base to 1024
+  return 2 * stage_bytes<NT>() + 1024;  // two stages, and room to align the base to 1024
 }
 
 // Grid: ceil(rows / (64 WGS)); 128 WGS threads.  x [*, F] f32 (node rows),
 // whi / wlo [64 NT, kpad] bf16 from edge_split_w_kernel, out [rows, C] f32.
-template <int NT, int WGS>
+template <int NT>
 __global__ void __launch_bounds__(128 * WGS, 1)
 edge_abs_diff_matmul_kernel(const float* __restrict__ x, const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
                             const float* __restrict__ bias, float* __restrict__ out, int rows, int N, int F, int C,
                             int kpad) {
-  constexpr int TM = 64 * WGS, STAGE = stage_bytes<NT, WGS>(), B_BYTES = 64 * NT * KB * 2;
+  constexpr int TM = 64 * WGS, STAGE = stage_bytes<NT>(), B_BYTES = 64 * NT * KB * 2;
   constexpr int LDO = 64 * NT + 8;  // floats a row of the staged output tile; the pad spreads rows over the banks
   static_assert(TM * LDO * 4 <= 2 * STAGE, "the output tile fits the two stages");
   extern __shared__ unsigned char smem_raw[];
@@ -488,12 +489,12 @@ edge_abs_diff_matmul_kernel(const float* __restrict__ x, const bf16* __restrict_
   }
 }
 
-template <int NT, int WGS>
+template <int NT>
 int launch_main(const float* x, const bf16* whi, const bf16* wlo, const float* bias, float* out, int rows, int N,
                 int F, int C, int kpad, cudaStream_t st) {
-  auto kernel = edge_abs_diff_matmul_kernel<NT, WGS>;
+  auto kernel = edge_abs_diff_matmul_kernel<NT>;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT, WGS>());
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -501,7 +502,7 @@ int launch_main(const float* x, const bf16* whi, const bf16* wlo, const float* b
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((rows + 64 * WGS - 1) / (64 * WGS));
   cfg.blockDim = dim3(128 * WGS);
-  cfg.dynamicSmemBytes = smem_bytes<NT, WGS>();
+  cfg.dynamicSmemBytes = smem_bytes<NT>();
   cfg.stream = st;
   cfg.attrs = &pdl;
   cfg.numAttrs = 1;
@@ -509,38 +510,41 @@ int launch_main(const float* x, const bf16* whi, const bf16* wlo, const float* b
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int WGS>
-int launch_main_nt(int nt, const float* x, const bf16* whi, const bf16* wlo, const float* bias, float* out, int rows,
-                   int N, int F, int C, int kpad, cudaStream_t st) {
-  switch (nt) {
-    case 1: return launch_main<1, WGS>(x, whi, wlo, bias, out, rows, N, F, C, kpad, st);
-    case 2: return launch_main<2, WGS>(x, whi, wlo, bias, out, rows, N, F, C, kpad, st);
-    case 3: return launch_main<3, WGS>(x, whi, wlo, bias, out, rows, N, F, C, kpad, st);
-    case 4: return launch_main<4, WGS>(x, whi, wlo, bias, out, rows, N, F, C, kpad, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+// W's split scratch: hi rows, then lo rows, each [64 NT, kpad]
+struct SplitLayout {
+  int nt, rows_w, kpad;
+  explicit SplitLayout(int F, int C) : nt((C + 63) / 64), rows_w(64 * nt), kpad((F + KB - 1) / KB * KB) {}
+  size_t elems() const { return 2 * static_cast<size_t>(rows_w) * kpad; }
+};
 
 }  // namespace
 
+// bf16 elements of the scratch edge_abs_diff_matmul_f32 needs for W's split
+// at these F and C: 2 * 64 * ceil(C / 64) * (F rounded up to 64).
+extern "C" size_t edge_abs_diff_matmul_scratch_elems(int F, int C) { return SplitLayout(F, C).elems(); }
+
 // x [B, N, F], w [C, F], bias [C], out [B, N, N, C]: f32, contiguous, on the
-// device of `stream`.  wsplit: bf16 scratch of 2 * 64 * ceil(C / 64) *
-// (F rounded up to 64) elements, 16-byte aligned (W's hi rows, then its lo
-// rows).  C <= 256; tile_rows 128 (two warpgroups) or 64.  Launches the W
-// split pass and the main kernel; returns cudaGetLastError() after them.
+// device of `stream`.  wsplit: bf16 scratch of
+// edge_abs_diff_matmul_scratch_elems(F, C) elements, 16-byte aligned.
+// 1 <= C <= 256.  Launches the W split pass and the main kernel; returns
+// cudaGetLastError() after them.
 extern "C" int edge_abs_diff_matmul_f32(const float* x, const float* w, const float* bias, float* out, void* wsplit,
-                                        int B, int N, int F, int C, int tile_rows, void* stream) {
-  const int nt = (C + 63) / 64, rows_w = 64 * nt, kpad = (F + KB - 1) / KB * KB;
-  if (C < 1 || nt > 4 || F < 1 || (tile_rows != 64 && tile_rows != 128)) return static_cast<int>(cudaErrorInvalidValue);
+                                        int B, int N, int F, int C, void* stream) {
+  const SplitLayout L(F, C);
+  if (C < 1 || L.nt > 4 || F < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* whi = static_cast<bf16*>(wsplit);
-  bf16* wlo = whi + static_cast<size_t>(rows_w) * kpad;
-  const int pairs = rows_w * kpad / 2;
+  bf16* wlo = whi + static_cast<size_t>(L.rows_w) * L.kpad;
+  const int pairs = L.rows_w * L.kpad / 2;
   edge_split_w_kernel<<<(pairs + SPLIT_THREADS - 1) / SPLIT_THREADS, SPLIT_THREADS, 0, st>>>(w, whi, wlo, C, F,
-                                                                                              rows_w, kpad);
+                                                                                              L.rows_w, L.kpad);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int rows = B * N * N;
-  return tile_rows == 128 ? launch_main_nt<2>(nt, x, whi, wlo, bias, out, rows, N, F, C, kpad, st)
-                          : launch_main_nt<1>(nt, x, whi, wlo, bias, out, rows, N, F, C, kpad, st);
+  switch (L.nt) {
+    case 1: return launch_main<1>(x, whi, wlo, bias, out, rows, N, F, C, L.kpad, st);
+    case 2: return launch_main<2>(x, whi, wlo, bias, out, rows, N, F, C, L.kpad, st);
+    case 3: return launch_main<3>(x, whi, wlo, bias, out, rows, N, F, C, L.kpad, st);
+    default: return launch_main<4>(x, whi, wlo, bias, out, rows, N, F, C, L.kpad, st);
+  }
 }

@@ -26,12 +26,6 @@ import torch
 
 #: launches of the CUDA kernel in this process (read by chip_smoke.py)
 LAUNCHES = 0
-#: flattened (b, i, j) rows a block owns: 128, two warpgroups sharing each
-#: stage of W, which the H100 runs faster than 64 (PERF.md); 64 stays
-#: for chip_smoke.py to time that choice again
-TILE_ROWS = 128
-#: the reduction runs in stages of 64 bf16 (one 128-byte swizzle row)
-_KB = 64
 
 
 def edge_abs_diff_matmul_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -65,10 +59,22 @@ def edge_abs_diff_matmul_split_reference(x: torch.Tensor, w: torch.Tensor, b: to
     return out + b
 
 
-def split_scratch_shape(f: int, c: int) -> tuple:
-    """Shape of the bf16 scratch for W's split: ``(2, 64 * ceil(c / 64),
-    f rounded up to 64)``, hi rows then lo rows, zero past ``c`` and ``f``."""
-    return 2, -(-c // 64) * 64, -(-f // _KB) * _KB
+def _lib():
+    """The built library, its two C entry points typed."""
+    from mft_tpu_torch.kernels.build import load
+
+    lib = load("edge_mlp")
+    lib.edge_abs_diff_matmul_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.edge_abs_diff_matmul_f32.restype = ctypes.c_int
+    lib.edge_abs_diff_matmul_scratch_elems.argtypes = [ctypes.c_int] * 2
+    lib.edge_abs_diff_matmul_scratch_elems.restype = ctypes.c_size_t
+    return lib
+
+
+def scratch_elems(f: int, c: int) -> int:
+    """bf16 elements of the scratch the kernel needs for W's split, as its C
+    side lays it out (hi rows then lo rows, padded to its tiles)."""
+    return int(_lib().edge_abs_diff_matmul_scratch_elems(f, c))
 
 
 def _edge_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
@@ -83,10 +89,8 @@ def _edge_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
     return dx, dw, g.sum(dim=(0, 1, 2))
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile_rows: int = TILE_ROWS) -> torch.Tensor:
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    from mft_tpu_torch.kernels.build import load
-
     if x.dim() != 3 or w.dim() != 2 or b.dim() != 1:
         raise ValueError(f"expected x [B,N,F], w [C,F], b [C]; got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
     bsz, n, f = x.shape
@@ -95,8 +99,6 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile_rows: int = 
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
     if c > 256:  # all channels in one wgmma of at most 256 columns
         raise ValueError(f"at most 256 output channels, got {c}")
-    if tile_rows not in (64, 128):
-        raise ValueError(f"tile_rows must be 64 or 128, got {tile_rows}")
     if max(bsz * n * n, x.numel()) >= 2**31:  # the kernel indexes rows and x with int
         raise ValueError(f"too large for one call: x {tuple(x.shape)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
@@ -109,14 +111,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tile_rows: int = 
     out = torch.empty((bsz, n, n, c), device=x.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    wsplit = torch.empty(split_scratch_shape(f, c), device=x.device, dtype=torch.bfloat16)
-    fn = load("edge_mlp").edge_abs_diff_matmul_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    wsplit = torch.empty(scratch_elems(f, c), device=x.device, dtype=torch.bfloat16)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCHES += 1
-    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), wsplit.data_ptr(), bsz, n, f, c, tile_rows,
-             stream)
+    err = _lib().edge_abs_diff_matmul_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                          wsplit.data_ptr(), bsz, n, f, c, stream)
     if err != 0:
         raise RuntimeError(f"edge_abs_diff_matmul_f32 launch failed: cudaError {err}")
     return out

@@ -84,19 +84,25 @@ def test_one_term_misses_tolerance():
     assert one > 1e-4 > three
 
 
-@pytest.mark.parametrize("f, c, want", [(133, 192, (2, 192, 192)), (229, 192, (2, 192, 256)),
-                                        (128, 192, (2, 192, 128)), (5, 8, (2, 64, 64)), (40, 256, (2, 256, 64))])
-def test_split_scratch_shape(f, c, want):
-    """W's split scratch: channels padded to the 64-column blocks of the
-    wgmma, the reduction to whole 128-byte swizzle rows of 64 bf16."""
-    assert tem.split_scratch_shape(f, c) == want
-
-
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(1, 3, 4)
     with pytest.raises(ValueError, match="256"):
         tem._launch(x, torch.zeros(257, 4), torch.zeros(257))
-    with pytest.raises(ValueError, match="tile_rows"):
-        tem._launch(x, torch.zeros(8, 4), torch.zeros(8), tile_rows=32)
     with pytest.raises(ValueError, match="terms"):
         tem.edge_abs_diff_matmul_split_reference(x, torch.zeros(8, 4), torch.zeros(8), terms=2)
+
+
+@pytest.mark.parametrize("x, w, b, match", [
+    ((3, 4), (8, 4), (8,), "expected"),
+    ((1, 3, 4), (8, 4, 1), (8,), "expected"),
+    ((1, 3, 4), (8, 4), (8, 1), "expected"),
+    ((1, 3, 4), (8, 5), (8,), "mismatch"),
+    ((1, 3, 4), (8, 4), (7,), "mismatch"),
+    ((1, 46341, 1), (8, 1), (8,), "too large"),  # 46341**2 rows overflow the kernel's int
+    ((1, 3, 4), (8, 4), (8,), "CUDA tensor"),
+], ids=["x-2d", "w-3d", "b-2d", "w-depth", "b-width", "rows-int32", "cpu-tensor"])
+def test_wrapper_refuses_bad_inputs(x, w, b, match):
+    """The kernel's wrapper refuses, before it builds or launches anything,
+    what its C entry point would misread."""
+    with pytest.raises(ValueError, match=match):
+        tem._launch(torch.zeros(x), torch.zeros(w), torch.zeros(b))
