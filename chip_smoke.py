@@ -13,7 +13,9 @@ non-zero:
 3. hold every kernel against its plain PyTorch version on the card at the
    shapes the main path gives it (random inputs from a seeded generator),
    with the stated tolerance, and time both: the GNN edge kernel (the main
-   path's three widths, the 50-shot graph and ragged shapes; device time by
+   path's three widths, the training path's B = 16 graphs at the same
+   widths with the op's gradient there and its plain backward's device time,
+   the 50-shot graph and ragged shapes; device time by
    the profiler beside the wrapper's CUDA-event time, the function's bound
    beside the work of its tensor-core route and the f32 bound, the kernel
    against the plain emulation of its own three-term split, a planted
@@ -30,7 +32,10 @@ non-zero:
    L2 traffic beside it);
 4. check the eval on the card against the same eval on the CPU at a small
    size (strict f32 with the eager inner loop; then the fused scan on the
-   card against its plain version on the CPU), few inner steps;
+   card against its plain version on the CPU), few inner steps; then one
+   step of each training stage (baseline, episodic GnnNet with the edge
+   kernel, the meta fine-tune with a fixed inner schedule) on the card
+   against the CPU at 64 px: loss, gradients, updates, running stats;
 5. drive the main path through ``mft_tpu_torch.cli.finetune.main`` at full
    width — ``--method all --use_pallas --inner_scan fused``, ResNet10 at
    224 px, 5-way 5-shot, 15 queries, ``gen_examples=17``,
@@ -43,10 +48,19 @@ non-zero:
    --inner_param_dtype float32``); then one more episode of the main path
    under ``torch.profiler`` to see both kernels' symbols on the device
    timeline and to print where the time goes (per eval phase, per kernel,
-   idle share).
+   idle share);
+6. drive the training path through ``mft_tpu_torch.cli.train.main`` at full
+   width on the synthetic dataset (baseline, batch 16; episodic GnnNet
+   ``--train_aug --use_pallas``; ``--fine_tune`` resumed from its
+   checkpoint), with the launch counts set to 0 before each stage and read
+   after, seconds per step, peak device memory and one profiled step per
+   stage; then one ``--method all`` eval episode from the checkpoints those
+   stages wrote.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
-the main path, max error, kernel / plain / bound times); the last line is
+the main path, max error, kernel / plain / bound times; launches on the
+training path and, for the edge kernel, one training step's forward times
+and its plain backward's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -129,6 +143,62 @@ FUSED_PRODUCT_FAULT = "dead rows of the last 64-row tile not zero"
 #: a short scan whose launches all fit the CUDA launch queue, so that the
 #: host's time inside the C call is the enqueue alone
 FUSED_ENQUEUE_STEPS = 60
+#: card vs CPU, one training step of each stage at 64 px, ResNet10 at full
+#: width, strict f32, the same weights, inputs and inner schedule.  The loss:
+#: the same forward in another summation order (cuDNN against the CPU's
+#: convolutions, the edge kernel within 1e-4), relative.  The gradients: per
+#: tensor, the largest difference within TRAIN_GRAD_TOL of that tensor's
+#: largest gradient plus 1e-5 of the largest in the whole tree (a gradient
+#: that is zero in exact arithmetic, a bias before a batch-statistics BN, is
+#: f32 noise with no sign in common).  The running stats: largest difference
+#: within TRAIN_STATS_TOL of each tensor's largest value.  The update: Adam's
+#: first step is about lr * sign(g), so a gradient within noise of zero
+#: flips its element by up to 2 * lr; the share of all elements whose updates
+#: agree within 1e-2 * lr must reach TRAIN_UPDATE_SHARE (the analytically zero
+#: gradients alone, the GNN's biases before its BNs, are 3.5e-4 of them)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_STATS_TOL = 1e-4
+TRAIN_UPDATE_SHARE = 0.999
+#: widened after the first call on the card (the gradient rule alone read
+#: 2.368 of its allowance in the episodic step, all of it in a tensor of
+#: sums with heavy cancellation: the second Wcompute's edge weight gradient
+#: sums 2700 products of both signs to 3e-3; the CPU's own f32 gradient
+#: there reads 1.0 of the allowance against f64).  Each device carries its
+#: own f32 error against the exact gradient, so each tensor's allowance
+#: gains TRAIN_F32_FACTOR times the CPU's f32 error against the same step in
+#: f64 on the CPU (the edge op plain in f64), measured in the same run.
+#: What the wider bound still catches is shown in the same run: the card's
+#: episodic step with the edge forward as one bf16 product (TRAIN_FAULT;
+#: about 200 times the widened allowance in a CPU emulation) must fail it
+TRAIN_F32_FACTOR = 4.0
+TRAIN_FAULT = "edge forward as one bf16 product, lo terms dropped"
+#: the meta fine-tune's loss, gradients and stats come after 105 inner
+#: Adam(0.01) steps, each of which flips the near-zero-gradient elements the
+#: two devices disagree on by up to 0.02: the two devices part further.  How
+#: far is measured in the same run: the CPU's f32 step against the same step
+#: in f64 on the CPU (at 64 px this read, on the CPU alone, 2.7e-3 in loss,
+#: 0.30 relative L2 in the gradients, 0.19 of the update elements, 0.20 in
+#: the stats: the chaos of the inner loop, not a fault).  The card may part
+#: from the CPU by at most TRAIN_FT_FACTOR times that floor (never by less
+#: than the bounds above allow), by at most TRAIN_FT_CAP relative in loss,
+#: and in at most TRAIN_FT_DISAGREE_CAP of the update elements.  Widened
+#: after the second call: the floor was the CPU against itself with the rows
+#: of every inner minibatch reordered, and the card read 5.4x it in the
+#: gradients (0.171) and stats (0.117), while the loss held (3.8e-4).  What
+#: the wider bound still catches is shown in the same run: the card's step
+#: with fo_maml_reattach dropped (TRAIN_FT_FAULT: the outer gradient never
+#: reaches the adapted block; 0.58 of the update elements disagree in a CPU
+#: emulation) must fail it
+TRAIN_FT_FACTOR = 3.0
+TRAIN_FT_CAP = 1e-2
+TRAIN_FT_DISAGREE_CAP = 0.25
+TRAIN_FT_FAULT = "fo_maml_reattach dropped, the adapted block detached"
+#: full-width training stages through cli.train.main (224 px, synthetic):
+#: baseline batches (480 images at batch 16), episodic and fine-tune episodes
+#: (5-way 5-shot, 16 queries); the step profiled (0 is the warm-up)
+TRAIN_EPISODES = {"episodic": 6, "fine_tune": 4}
+PROFILED_STEP = 2
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
 #: the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -242,6 +312,18 @@ def sass_count(lib, op: str) -> int:
 #: 5-shot main path: B = 15 query graphs of N = 30 nodes, the three Wcompute
 #: widths F, C = 192 (one episode's three calls)
 EDGE_MAIN = ((15, 30, 133, 192), (15, 30, 181, 192), (15, 30, 229, 192))
+#: training path (``--method gnnnet --use_pallas``): B = n_query = 16 graphs a
+#: step (cli/train.py's rule max(1, int(16*test_n_way/train_n_way))), the
+#: same N, F and C; three forward calls a step, their backward plain
+EDGE_TRAIN = ((16, 30, 133, 192), (16, 30, 181, 192), (16, 30, 229, 192))
+#: the op's gradient on the card (kernel forward, plain backward _edge_bwd)
+#: against autograd through the plain version, one fixed cotangent, as a
+#: share of each gradient's largest value: the same f32 formulas on the same
+#: cotangent, summed in another order over up to B*N*N = 14400 terms (about
+#: 1e-6 expected), with the forward tolerance as the bound
+EDGE_GRAD_TOL = 1e-4
+#: a fault the gradient check must catch (emulated in plain torch on the card)
+EDGE_GRAD_FAULT = "dx without its -sum_i term"
 #: besides: the 50-shot N = 130 graph; rows not a multiple of 64 with C and F
 #: under one tile; F a multiple of 64; one graph; the three-query graph of
 #: phase 4
@@ -266,8 +348,9 @@ def phase_edge_kernel(torch, dev):
         fail("the edge kernel's library has no HGMMA instruction: its products do not run on the tensor cores")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst_abs, main = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    train = dict(main)  # one training step's three calls
     bound_by = {"bytes": 0.0, "operations": 0.0}  # the main calls' bounds, summed by what binds each
-    for b, n, f, c in EDGE_MAIN + EDGE_OTHER:
+    for b, n, f, c in EDGE_MAIN + EDGE_TRAIN + EDGE_OTHER:
         label = f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}"
         x = torch.randn((b, n, f), generator=gen, device=dev)
         w = torch.randn((c, f), generator=gen, device=dev) * 0.05
@@ -291,7 +374,7 @@ def phase_edge_kernel(torch, dev):
         if not emul <= EDGE_SPLIT_TOL:
             fail(f"edge kernel departs from its stated three-term arithmetic at {(b, n, f, c)}: {emul:.3e}")
         worst_abs = max(worst_abs, abs_err)
-        if (b, n, f, c) in EDGE_MAIN:  # the planted fault, on the same inputs
+        if (b, n, f, c) in EDGE_MAIN + EDGE_TRAIN:  # the planted fault, on the same inputs
             one = edge_mlp.edge_abs_diff_matmul_split_reference(x, w, bias, terms=1)
             reading = float((one - ref).abs().max()) / scale
             caught = reading > EDGE_REL_TOL
@@ -311,7 +394,7 @@ def phase_edge_kernel(torch, dev):
         print(f"{label}: bound_ms={bms:.5f} ({by}; one product over F at the bf16 tensor-core peak, or bytes); "
               f"the route's three bf16 products over F padded to 16 {x3_bms:.5f} ({x3_by}); f32 CUDA-core bound "
               f"{f32_bms:.5f} ({f32_by}); the kernel takes {ms / bms:.2f} x its bound")
-        if n == 130 or (b, n, f, c) in EDGE_MAIN:
+        if n == 130 or (b, n, f, c) in EDGE_MAIN + EDGE_TRAIN:
             plain_us = device_us(lambda: edge_mlp.edge_abs_diff_matmul_reference(x, w, bias))["total"]
             e = (x[:, :, None, :] - x[:, None, :, :]).abs()
             cublas_us = device_us(lambda: torch.matmul(e, w.t()))["total"]
@@ -325,11 +408,18 @@ def phase_edge_kernel(torch, dev):
                 main["plain_ms"] += plain_us * 1e-3
                 main["bound_ms"] += bms
                 bound_by[by] += bms
+            if (b, n, f, c) in EDGE_TRAIN:  # one training step's three forward launches
+                train["ms"] += ms
+                train["plain_ms"] += plain_us * 1e-3
+                train["bound_ms"] += bms
     print(f"edge_abs_diff_matmul, one episode's three calls: device {main['ms']:.5f} ms, plain {main['plain_ms']:.5f} "
           f"ms, bound {main['bound_ms']:.5f} ms ({bound_by['bytes']:.5f} of it by bytes, {bound_by['operations']:.5f} "
           f"by operations), the route's three products "
           f"{sum(edge_bound_ms(*case, route='bf16x3')[0] for case in EDGE_MAIN):.5f} ms, f32 CUDA-core bound "
           f"{sum(edge_bound_ms(*case, route='f32')[0] for case in EDGE_MAIN):.5f} ms")
+    print(f"edge_abs_diff_matmul, one training step's three forward calls (B = 16): device {train['ms']:.5f} ms, plain "
+          f"{train['plain_ms']:.5f} ms, bound {train['bound_ms']:.5f} ms")
+    bwd_ms = phase_edge_gradient(torch, dev, edge_mlp)
     return {
         "name": "edge_abs_diff_matmul",
         "route": "cuda",
@@ -343,7 +433,53 @@ def phase_edge_kernel(torch, dev):
         "bound_ms": main["bound_ms"],
         "bound_by": max(bound_by, key=bound_by.get),
         "library_ms": None,  # no single PyTorch call computes |x_i - x_j| @ W
+        # the training path (B = 16): one step's three forward calls, and the
+        # plain backward (_edge_bwd) of those three calls, device time
+        "ms_train": train["ms"],
+        "plain_ms_train": train["plain_ms"],
+        "bound_ms_train": train["bound_ms"],
+        "backward_plain_ms_train": bwd_ms,
     }
+
+
+def phase_edge_gradient(torch, dev, edge_mlp):
+    """The op's gradient on the card at EDGE_TRAIN (the kernel's forward,
+    the plain backward) against autograd through the plain version, a
+    planted fault beside it, and the plain backward's device time.  Returns
+    one training step's backward device milliseconds (three calls)."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bwd_ms = 0.0
+    for b, n, f, c in EDGE_TRAIN:
+        label = f"edge_abs_diff_matmul gradient B={b} N={n} F={f} C={c}"
+        x = torch.randn((b, n, f), generator=gen, device=dev)
+        w = torch.randn((c, f), generator=gen, device=dev) * 0.05
+        bias = torch.randn((c,), generator=gen, device=dev)
+        g = torch.randn((b, n, n, c), generator=gen, device=dev)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        before = edge_mlp.LAUNCHES
+        got = torch.autograd.grad(edge_mlp.edge_abs_diff_matmul(*leaves), leaves, g)
+        if edge_mlp.LAUNCHES != before + 1:
+            fail("edge_abs_diff_matmul with requires_grad did not launch its kernel")
+        plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        want = torch.autograd.grad(edge_mlp.edge_abs_diff_matmul_reference(*plain), plain, g)
+        errs = {name: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                for name, a, r in zip(("dx", "dw", "db"), got, want)}
+        d = x[:, :, None, :] - x[:, None, :, :]
+        bad_dx = (torch.sign(d) * torch.matmul(g, w)).sum(dim=2)
+        fault = float((bad_dx - want[0]).abs().max()) / float(want[0].abs().max())
+        print(f"{label}: kernel forward + plain backward against autograd of the plain version: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol {EDGE_GRAD_TOL:g} of each gradient's largest value); planted fault ({EDGE_GRAD_FAULT}): "
+              f"{fault:.3e}: {'caught' if fault > EDGE_GRAD_TOL else 'passes'}")
+        if not all(math.isfinite(v) for v in errs.values()) or max(errs.values()) > EDGE_GRAD_TOL:
+            fail(f"edge gradient disagrees with the plain version's at {(b, n, f, c)}: {errs}")
+        if not fault > EDGE_GRAD_TOL:
+            fail(f"the edge gradient check does not catch {EDGE_GRAD_FAULT}")
+        us = device_us(lambda: edge_mlp._edge_bwd(x, w, g))
+        bwd_ms += us["total"] * 1e-3
+        print(f"{label}: plain backward (_edge_bwd, materializes [B,N,N,F]) device_ms={us['total'] * 1e-3:.5f}")
+    print(f"edge_abs_diff_matmul, one training step's three plain backward calls: device {bwd_ms:.5f} ms")
+    return bwd_ms
 
 
 def fused_bound(geom, n_steps: int, carry_bytes: int, bank_bytes: int):
@@ -821,6 +957,157 @@ def phase_cross_device(torch, dev):
             fail(f"card eval ({mode}) disagrees with the CPU eval at {epochs} inner epochs (tol {XDEV_TOL:g} without steps)")
 
 
+def _train_step_readings(torch, stage, dev, model, data, sched=None, dtype=None):
+    """One step of ``stage`` on ``dev``: ``(loss, gradients, updates, new
+    stats)`` as flat dicts of CPU tensors.  ``dtype``: cast the weights and
+    inputs (f64 runs the edge op's plain version, in f64)."""
+    from torch.utils import _pytree as pytree
+
+    from mft_tpu_torch.train import optimizers as opt
+    from mft_tpu_torch.train import steps
+    from mft_tpu_torch.utils.checkpoint import keyed
+
+    bcfg, gcfg, spec, params, stats = model
+    to = lambda t: t.to(dev, dtype) if dtype is not None and t.is_floating_point() else t.to(dev)
+    if dtype == torch.float64 and gcfg is not None:
+        gcfg = gcfg._replace(use_pallas=False)
+    params, stats = pytree.tree_map(to, params), pytree.tree_map(to, stats)
+    tx = opt.torch_adam(1e-3)
+    if sched is not None:
+        sched = tuple(t.to(dev) for t in sched)
+    data = tuple(to(t) for t in data) if isinstance(data, tuple) else to(data)
+    if stage == "baseline":
+        x, y = data
+        loss_fn = lambda p: steps.baseline_loss_fn(p, stats, x, y, bcfg=bcfg)
+        out = steps.baseline_train_step(params, stats, tx.init(params), x, y, bcfg=bcfg, tx=tx)
+    elif stage == "episodic":
+        eps = data
+        loss_fn = lambda p: steps._episode_loss(p, stats, eps[0], method="gnnnet", bcfg=bcfg, gcfg=gcfg, spec=spec)
+        out = steps.episodic_train_step(params, stats, tx.init(params), eps, method="gnnnet", bcfg=bcfg, gcfg=gcfg,
+                                        spec=spec, tx=tx)
+    else:
+        eps = data
+        mcfg = steps.MetaFinetuneCfg(bn_mode="episode")
+        loss_fn = lambda p: steps._meta_finetune_episode_loss(p, stats, eps[0], None, method="gnnnet", bcfg=bcfg,
+                                                              gcfg=gcfg, spec=spec, mcfg=mcfg, schedule=sched)
+        out = steps.meta_finetune_train_step(params, stats, tx.init(params), eps, None, method="gnnnet", bcfg=bcfg,
+                                             gcfg=gcfg, spec=spec, mcfg=mcfg, tx=tx, schedule=sched)
+    _, _, grads = steps._value_and_grad(loss_fn, params)
+    new_p, new_s, _, m = out
+    cpu = lambda t: {k: v.detach().cpu() for k, v in keyed(t).items()}
+    before = cpu(params)
+    return float(m["loss"]), cpu(grads), {k: v - before[k] for k, v in cpu(new_p).items()}, cpu(new_s)
+
+
+def _readings_apart(a, b, floor=None):
+    """How far two step readings part: relative loss, the worst tensor's
+    gradient error against TRAIN_GRAD_TOL's rule (as a multiple of its
+    allowance), the gradients' relative L2 over the whole tree, the share of
+    update elements that differ by more than 1e-2 * lr, the worst stats
+    tensor (as a share of its largest value).  ``floor``: per gradient
+    tensor, the CPU's f32 error against f64, TRAIN_F32_FACTOR of which
+    joins that tensor's allowance."""
+    la, ga, ua, sa = a
+    lb, gb, ub, sb = b
+    scale = max(float(v.abs().max()) for v in gb.values())
+    floor = floor or {}
+    grad_worst = max(float((ga[k] - v).abs().max())
+                     / (TRAIN_GRAD_TOL * float(v.abs().max()) + 1e-5 * scale + TRAIN_F32_FACTOR * floor.get(k, 0.0))
+                     for k, v in gb.items())
+    num = sum(float((ga[k] - v).square().sum()) for k, v in gb.items())
+    den = sum(float(v.square().sum()) for v in gb.values())
+    disagree = sum(int(((ua[k] - v).abs() > 1e-2 * 1e-3).sum()) for k, v in ub.items())
+    total = sum(v.numel() for v in ub.values())
+    stats = max(float((sa[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for k, v in sb.items())
+    return {"loss": abs(la - lb) / abs(lb), "grad_worst": grad_worst, "grad_rel_l2": math.sqrt(num / den),
+            "update_disagree": disagree / total, "stats": stats}
+
+
+def phase_train_cross_device(torch, dev):
+    """One step of each training stage (baseline; episodic GnnNet with the
+    edge kernel; the meta fine-tune in the episode BN mode with a fixed inner
+    schedule) on the card against the same step on the CPU, at 64 px,
+    ResNet10 at full width, strict f32.  Bounds: TRAIN_* above."""
+    import numpy as np
+
+    from mft_tpu_torch.core.episode import EpisodeSpec
+    from mft_tpu_torch.methods import gnnnet as gn
+    from mft_tpu_torch.methods.baseline import init_classifier
+    from mft_tpu_torch.models import backbone as bb
+    from mft_tpu_torch.train.inner_loop import InnerLoopCfg, schedule_from_perms
+
+    g = torch.Generator().manual_seed(4)
+    bcfg = bb.resnet10()
+    spec = EpisodeSpec(5, 5, 3)
+    gcfg = gn.GnnNetCfg(use_pallas=True)
+    feature, stats = bb.init_backbone(g, bcfg)
+    rs = np.random.RandomState(5)
+    models = {
+        "baseline": (bcfg, None, None, {"feature": feature, "classifier": init_classifier(g, 512, 10)}, stats),
+        "episodic": (bcfg, gcfg, spec, {"feature": feature, **gn.init_head(g, gcfg)}, stats),
+    }
+    models["fine_tune"] = models["episodic"]
+    data = {
+        "baseline": (torch.from_numpy(rs.rand(16, 3, 64, 64).astype(np.float32)), torch.from_numpy(rs.randint(0, 10, 16))),
+        "episodic": torch.from_numpy(rs.rand(1, 5, 8, 3, 64, 64).astype(np.float32)),
+        "fine_tune": torch.from_numpy(rs.rand(1, 5, 8, 3, 64, 64).astype(np.float32)),
+    }
+    icfg = InnerLoopCfg(epochs=15, batch_size=4, bank_size=spec.support_size)
+    sched = schedule_from_perms(np.stack([rs.permutation(icfg.bank_size) for _ in range(icfg.epochs)]), icfg)
+    for stage in ("baseline", "episodic", "fine_tune"):
+        st = sched if stage == "fine_tune" else None
+        card = _train_step_readings(torch, stage, dev, models[stage], data[stage], st)
+        cpu = _train_step_readings(torch, stage, "cpu", models[stage], data[stage], st)
+        exact = _train_step_readings(torch, stage, "cpu", models[stage], data[stage], st, dtype=torch.float64)
+        f32_floor = None
+        if stage != "fine_tune":
+            f32_floor = {k: float((v.double() - exact[1][k]).abs().max()) for k, v in cpu[1].items()}
+        got = _readings_apart(card, cpu, f32_floor)
+        bounds = {"loss": TRAIN_LOSS_TOL, "grad_worst": 1.0, "grad_rel_l2": math.inf, "stats": TRAIN_STATS_TOL,
+                  "update_disagree": 1.0 - TRAIN_UPDATE_SHARE}
+        line = ""
+        if stage == "episodic":  # the planted fault, on the card, the same inputs
+            from unittest import mock
+
+            from mft_tpu_torch.kernels import edge_mlp
+
+            one = lambda x, w, b: edge_mlp.edge_abs_diff_matmul_split_reference(x, w, b, terms=1)
+            with mock.patch.object(edge_mlp, "edge_abs_diff_matmul", one):
+                faulty = _readings_apart(_train_step_readings(torch, stage, dev, models[stage], data[stage]), cpu,
+                                         f32_floor)
+            caught = [k for k, v in bounds.items() if not faulty[k] <= v]
+            line = (f"; planted fault ({TRAIN_FAULT}): " + ", ".join(f"{k} {v:.3e}" for k, v in faulty.items())
+                    + f": {'caught by ' + ', '.join(caught) if caught else 'passes'}")
+            if not caught:
+                fail(f"the training cross-device check does not catch {TRAIN_FAULT}")
+        if stage == "fine_tune":
+            floor = _readings_apart(cpu, exact)
+            bounds = {"loss": min(TRAIN_FT_CAP, max(TRAIN_LOSS_TOL, TRAIN_FT_FACTOR * floor["loss"])),
+                      "grad_worst": math.inf,
+                      "grad_rel_l2": max(TRAIN_GRAD_TOL, TRAIN_FT_FACTOR * floor["grad_rel_l2"]),
+                      "stats": max(TRAIN_STATS_TOL, TRAIN_FT_FACTOR * floor["stats"]),
+                      "update_disagree": min(TRAIN_FT_DISAGREE_CAP, max(1.0 - TRAIN_UPDATE_SHARE,
+                                                                        TRAIN_FT_FACTOR * floor["update_disagree"]))}
+            from unittest import mock
+
+            from mft_tpu_torch.train import steps
+
+            with mock.patch.object(steps, "fo_maml_reattach", lambda meta, adapted: adapted):
+                faulty = _readings_apart(_train_step_readings(torch, stage, dev, models[stage], data[stage], st), cpu)
+            caught = [k for k, v in bounds.items() if not faulty[k] <= v]
+            line = ("; floor (the CPU's f32 step against f64): " + ", ".join(f"{k} {v:.3e}" for k, v in floor.items())
+                    + f"; planted fault ({TRAIN_FT_FAULT}): " + ", ".join(f"{k} {v:.3e}" for k, v in faulty.items())
+                    + f": {'caught by ' + ', '.join(caught) if caught else 'passes'}")
+            if not caught:
+                fail(f"the fine-tune cross-device check does not catch {TRAIN_FT_FAULT}")
+        print(f"card vs CPU training step ({stage}, 64 px, f32): loss card {card[0]:.7f} CPU {cpu[0]:.7f}; "
+              + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
+              + "; bounds " + ", ".join(f"{k} {v:.3e}" for k, v in bounds.items()) + line)
+        bad = [k for k, v in bounds.items() if not got[k] <= v]
+        if bad:
+            fail(f"the card's {stage} training step parts from the CPU's: {bad}")
+
+
 def write_checkpoints(torch, save_dir):
     """Seeded random baseline@400 and gnnnet_aug@600 in the reference .tar layout."""
     from mft_tpu_torch import config as cfg_mod
@@ -909,6 +1196,99 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int)
         print(f"profiler kernel {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d} calls  {e.key[:110]}")
 
 
+def phase_training(torch, kernels, save_dir) -> dict:
+    """The three training stages at full width through
+    ``mft_tpu_torch.cli.train.main`` on the synthetic dataset, ResNet10 at
+    224 px, chained as the eval finds them: baseline at epoch 400 (batch 16),
+    episodic GnnNet ``--train_aug --use_pallas`` (5-way 5-shot, 16 queries)
+    at 599, ``--fine_tune`` resumed from 599.tar to 600.  Around each stage
+    every launch count is set to 0 and read after; the edge kernel must run
+    three times a step in the two GnnNet stages.  Per stage: seconds per step
+    (the first dropped, and the profiled one), peak device memory, and for
+    step PROFILED_STEP under torch.profiler its device time, idle share, the
+    edge kernel's forward and its plain backward's device time.  Returns the
+    launch counts of the two GnnNet stages summed."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mft_tpu_torch.cli import train
+    from mft_tpu_torch.train import steps
+
+    pj = os.path.join(save_dir, "paths.json")
+    common = ["--device", "cuda", "--dataset", "synthetic", "--model", "ResNet10", "--image_size", "224",
+              "--paths_json", pj]
+    gnn = common + ["--method", "gnnnet", "--train_aug", "--use_pallas", "--n_shot", "5", "--n_query", "16"]
+    stages = (
+        ("baseline", common + ["--method", "baseline", "--batch_size", "16", "--start_epoch", "400", "--stop_epoch",
+                               "400"]),
+        ("episodic", gnn + ["--episodes_per_epoch", str(TRAIN_EPISODES["episodic"]), "--start_epoch", "599",
+                            "--stop_epoch", "599"]),
+        ("fine_tune", gnn + ["--fine_tune", "--episodes_per_epoch", str(TRAIN_EPISODES["fine_tune"]),
+                             "--start_epoch", "600", "--stop_epoch", "600"]),
+    )
+    train_counts = {name: 0 for name in kernels.MODULES}
+    for stage, argv in stages:
+        trace = {}
+
+        @contextlib.contextmanager
+        def profiled():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                yield
+                torch.cuda.synchronize()
+            trace["events"] = prof.key_averages()
+
+        observe = lambda _stage, _epoch, step: profiled() if step == PROFILED_STEP else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        res = train.main(argv, observe_step=observe)
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        n = len(res.losses)
+        if n <= PROFILED_STEP + 1 or not all(math.isfinite(v) for v in res.losses):
+            fail(f"training stage {stage}: {n} steps, losses {res.losses}")
+        steady = [t for i, t in enumerate(res.seconds) if i not in (0, PROFILED_STEP)]
+        step_s = sum(steady) / len(steady)
+        want_edge = 0 if stage == "baseline" else 3 * n
+        print(f"training {stage}: {n} steps, losses {[round(v, 4) for v in res.losses]}, seconds per step "
+              f"{[round(t, 4) for t in res.seconds]} (first includes warm-up, step {PROFILED_STEP} profiled)")
+        print(f"training {stage} steady seconds/step = {step_s:.4f}; peak device memory "
+              f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); kernel launches {counts}")
+        if counts["edge_abs_diff_matmul"] != want_edge:
+            fail(f"training {stage} launched the edge kernel {counts['edge_abs_diff_matmul']} times, not {want_edge} "
+                 f"(three a step)")
+        if counts["fused_inner_scan"] != 0:
+            fail(f"training {stage} launched the fused scan, which the training path does not use")
+        if stage != "baseline":
+            for name, v in counts.items():
+                train_counts[name] += v
+        events = trace["events"]
+        on_device = [e for e in events if e.device_type != DeviceType.CPU and not getattr(e, "is_user_annotation", False)]
+        busy_us = sum(e.self_device_time_total for e in on_device)
+        if busy_us == 0:
+            fail(f"the profiler recorded no device time in the {stage} step")
+        fwd_us = sum(e.self_device_time_total for e in on_device
+                     if "edge_abs_diff_matmul_kernel" in e.key or "edge_split_w_kernel" in e.key)
+        for e in events:
+            if e.device_type == DeviceType.CPU and e.key == steps.INNER_RANGE:
+                print(f"training {stage} profiled step: range {e.key}: host {e.cpu_time_total / 1e3:.3f} ms, device "
+                      f"{e.device_time_total / 1e3:.3f} ms")
+        bwd = [e for e in events if e.device_type == DeviceType.CPU and e.key == "edge_abs_diff_matmul:backward"]
+        bwd_us = sum(e.device_time_total for e in bwd)
+        if stage != "baseline" and fwd_us == 0:
+            fail(f"the profiler traced the {stage} step but not the edge kernel")
+        print(f"training {stage} profiled step: device time {busy_us / 1e3:.3f} ms, idle share "
+              f"{1.0 - busy_us / 1e6 / step_s:.4f} (against the steady {step_s:.4f} s a step); edge kernel forward "
+              f"{fwd_us / 1e3:.4f} ms device; its plain backward {bwd_us / 1e3:.4f} ms device in "
+              f"{sum(e.count for e in bwd)} calls of the edge_abs_diff_matmul:backward range")
+        for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:5]:
+            print(f"training {stage} kernel {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:100]}")
+    return train_counts
+
+
 def main():
     import torch
 
@@ -949,8 +1329,9 @@ def main():
         print("kernels only: stopping before the eval phases")
         return
 
-    # 4. the eval on the card against the eval on the CPU
+    # 4. the eval, and one step of each training stage, on the card against the CPU
     phase_cross_device(torch, dev)
+    phase_train_cross_device(torch, dev)
 
     # 5. the main path at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
@@ -976,9 +1357,23 @@ def main():
         drive(finetune, "strict f32 path", common + ["--dtype", "float32", "--inner_param_dtype", "float32"], 2)
         phase_profile(torch, finetune, argv, steady, counts["edge_abs_diff_matmul"] // EPISODES)
 
+    # 6. the training path at full width, then one eval episode from the checkpoints it wrote
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
+        with open(os.path.join(save_dir, "paths.json"), "w") as f:
+            json.dump({"save_dir": save_dir}, f)
+        train_counts = phase_training(torch, kernels, save_dir)
+        print(f"training path kernel launches (episodic + fine-tune stages): {train_counts}")
+        for row in rows:
+            row["launches_train"] = train_counts[row["name"]]
+        # the last --dataset / --paths_json wins: the trained checkpoints' directory
+        drive(finetune, "eval from the trained checkpoints", argv + ["--dataset", "synthetic", "--paths_json",
+                                                                     os.path.join(save_dir, "paths.json")], 1)
+
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms"]
-    print(json.dumps({"kernels": [{k: row[k] for k in order} for row in rows]}))
+             "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
+             "backward_plain_ms_train"]
+    # keys of the training path that a kernel off that path has no number for
+    print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -14,9 +14,7 @@ Run: ``python -m mft_tpu_torch.cli.finetune --method all --use_pallas
 
 from __future__ import annotations
 
-import glob
 import os
-import re
 import sys
 import time
 from typing import NamedTuple
@@ -33,6 +31,7 @@ from mft_tpu_torch.data.pipeline import EpisodeStream
 from mft_tpu_torch.methods import gnnnet as gn
 from mft_tpu_torch.models import backbone as bb
 from mft_tpu_torch.train import eval_engine as ee
+from mft_tpu_torch.utils import checkpoint as ckpt
 
 
 class EvalResult(NamedTuple):
@@ -41,13 +40,6 @@ class EvalResult(NamedTuple):
     accs: list
     #: device seconds of each episode (host clock, synchronized)
     seconds: list
-
-
-def _resume_file(ckpt_dir: str):
-    """Latest numeric ``<epoch>.tar`` (io_utils.py:53-62), or None."""
-    epochs = [int(m.group(1)) for f in glob.glob(os.path.join(ckpt_dir, "*.tar"))
-              if (m := re.fullmatch(r"(\d+)\.tar", os.path.basename(f)))]
-    return os.path.join(ckpt_dir, f"{max(epochs)}.tar") if epochs else None
 
 
 def _load(path, bcfg, device, need_head: bool):
@@ -69,15 +61,14 @@ def build_models(a, paths, bcfg, device):
     models = {}
     if a.method in ("all", "baseline"):
         d = cfg_mod.checkpoint_dir(paths, a.dataset, a.model, "baseline", train_aug=a.train_aug)
-        path = os.path.join(d, "400.tar") if a.save_iter != -1 else _resume_file(d)
+        path = ckpt.get_assigned_file(d, 400) if a.save_iter != -1 else ckpt.get_resume_file(d)
         p, s = _load(path, bcfg, device, need_head=False)
         models["baseline"] = (p["feature"], s)
     if a.method in ("all", "gnnnet"):
         d = cfg_mod.checkpoint_dir(paths, a.dataset, a.model, "gnnnet", train_aug=True if a.method == "all" else a.train_aug,
                                    n_way=a.train_n_way, n_shot=a.n_shot)
         it = 600 if a.method == "all" else a.save_iter
-        path = os.path.join(d, f"{it}.tar") if it != -1 else (
-            os.path.join(d, "best_model.tar") if os.path.isfile(os.path.join(d, "best_model.tar")) else _resume_file(d))
+        path = ckpt.get_assigned_file(d, it) if it != -1 else ckpt.get_best_file(d)
         p, s = _load(path, bcfg, device, need_head=True)
         models["gnn"] = (p["feature"], s, {"fc": p["fc"], "gnn": p["gnn"]})
     return models

@@ -1,10 +1,11 @@
-"""Paths, checkpoint layout and the finetune flag set (port of
-``mft_tpu/config.py``; the logic is a copy, the flags are the eval
-driver's that the port implements, plus ``--device``).
+"""Paths, checkpoint layout and the flag sets of the eval and training
+drivers (port of ``mft_tpu/config.py``; the logic is a copy, the flags are
+those of the JAX drivers that the port implements, plus ``--device``).
 
 Only flags that the port acts on are defined, so argparse rejects the JAX
-driver's others (``--bn_mode``, ``--freeze_backbone``, ``--eval_batch``,
-``--episode_manifest``, ``--episode_cache``, ``--trace_dir``).
+drivers' others (eval: ``--bn_mode``, ``--freeze_backbone``,
+``--eval_batch``, ``--episode_manifest``; both: ``--episode_cache``,
+``--trace_dir`` and the dampnet-only flags).
 """
 
 from __future__ import annotations
@@ -96,6 +97,48 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--use_pallas", action="store_true", help="the CUDA edge kernel in the GNN head")
     ap.add_argument("--inner_scan", default="eager", choices=["eager", "fused"],
                     help="the GNN member's inner loop: one eager step per minibatch, or the fused CUDA scan")
+    a = ap.parse_args(argv)
+    if a.base_size <= 0:
+        a.base_size = int(a.image_size * 1.15)
+    return a
+
+
+def parse_train_args(argv=None):
+    """The training driver's flags (reference io_utils.py:10-47, the train
+    branch, + the JAX package's extras that the port implements).  Defaults
+    as in ``mft_tpu.cli.train``: strict f32, ``--stop_epoch`` inclusive."""
+    ap = argparse.ArgumentParser(description="mft_tpu_torch few-shot training")
+    ap.add_argument("--device", default="cuda", help="torch device; 'cuda' raises when no card is present")
+    ap.add_argument("--dataset", default="miniImageNet", help="training base dataset")
+    ap.add_argument("--model", default="ResNet10", help="backbone architecture")
+    ap.add_argument("--method", default="baseline", help="baseline | gnnnet | protonet")
+    ap.add_argument("--train_n_way", default=5, type=int)
+    ap.add_argument("--test_n_way", default=5, type=int)
+    ap.add_argument("--n_shot", default=5, type=int)
+    ap.add_argument("--n_query", default=-1, type=int,
+                    help="queries per class; -1 = the reference rule max(1, int(16*test_n_way/train_n_way))")
+    ap.add_argument("--train_aug", action="store_true")
+    ap.add_argument("--fine_tune", action="store_true", help="meta fine-tuning stage (FO-MAML)")
+    ap.add_argument("--num_classes", default=200, type=int)
+    ap.add_argument("--save_freq", default=50, type=int)
+    ap.add_argument("--start_epoch", default=0, type=int)
+    ap.add_argument("--stop_epoch", default=400, type=int,
+                    help="LAST epoch index, inclusive (the reference's --stop_epoch 401 is this --stop_epoch 400)")
+    ap.add_argument("--episodes_per_epoch", default=100, type=int)
+    ap.add_argument("--batch_size", default=16, type=int, help="baseline pretraining batch")
+    ap.add_argument("--episode_batch", default=1, type=int, help="episodes per training step")
+    ap.add_argument("--bn_mode", default="episode", choices=["episode", "minibatch"],
+                    help="meta fine-tune inner loop: stop-gradient trunk bank, or the whole backbone per minibatch")
+    ap.add_argument("--image_size", default=224, type=int)
+    ap.add_argument("--base_size", default=-1, type=int, help="host decode resolution; -1 = int(1.15*image_size)")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--seed", default=10, type=int, help="reference seed discipline (train.py:69)")
+    ap.add_argument("--paths_json", default=None)
+    ap.add_argument("--use_pallas", action="store_true", help="the CUDA edge kernel in the GNN head")
+    ap.add_argument("--episode_manifest", default=None,
+                    help="JSON of recorded episodes ({'episodes': [...]}) or, for --method baseline, batches "
+                         "({'batches': [...]}) to replay instead of sampling")
+    ap.add_argument("--episode_manifest_root", default=None, help="base directory of the manifest's relative paths")
     a = ap.parse_args(argv)
     if a.base_size <= 0:
         a.base_size = int(a.image_size * 1.15)

@@ -4,7 +4,8 @@ reference's ``.tar`` state dicts.
 * :func:`from_jax` maps JAX trees held as numpy arrays (NHWC/HWIO, linear
   ``w [in, out]``) onto the port's trees: HWIO conv weights -> OIHW, ``[F, C]``
   linear and 1x1-conv matrices -> ``[C, F]``, BN scale/bias/mean/var as they
-  are.  :func:`to_jax` is its inverse.
+  are.  :func:`to_jax` is its inverse; :func:`adam_from_jax` /
+  :func:`adam_to_jax` carry the training driver's Adam state the same way.
 * :func:`flat_from_jax` / :func:`flat_to_jax` carry the fused inner scan's
   flat parameter dict (``kernels/fused_inner_scan.py`` ``PKEYS``) across.  The
   port keeps the JAX module's layout there (HWIO conv weights flattened to
@@ -29,7 +30,7 @@ from mft_tpu_torch.models.backbone import ResNetCfg
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
 
 
 def _map_tree(tree, leaf, key=None):
@@ -72,6 +73,25 @@ def to_jax(params, stats=None):
     return (out, _map_tree(stats, lambda k, t: t.detach().cpu().numpy())) if stats is not None else (out, None)
 
 
+def adam_from_jax(opt_state_np, *, device="cpu") -> dict:
+    """The JAX ``torch_adam`` state (the optax chain's tuple, whose
+    ``ScaleByAdamState`` holds ``count``, ``mu`` and ``nu``; numpy leaves)
+    -> the port's ``torch_adam`` state ``{"mu", "nu", "t"}``, the moments
+    laid out as :func:`from_jax` lays out the parameters."""
+    adam = next((s for s in opt_state_np if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam is None:
+        raise ValueError("no Adam moments (an entry with .mu and .nu) in the optimizer state")
+    mu, _ = from_jax(adam.mu, device=device)
+    nu, _ = from_jax(adam.nu, device=device)
+    return {"mu": mu, "nu": nu, "t": int(np.asarray(adam.count))}
+
+
+def adam_to_jax(state: dict) -> dict:
+    """Inverse of :func:`adam_from_jax`: ``{"count", "mu", "nu"}`` with numpy
+    leaves in the JAX layout (the caller rebuilds the optax state from them)."""
+    return {"count": int(state["t"]), "mu": to_jax(state["mu"])[0], "nu": to_jax(state["nu"])[0]}
+
+
 def flat_from_jax(flat_np: dict, *, dtype=None, device="cpu") -> dict:
     """The JAX fused inner scan's flat ``PKEYS`` dict (numpy leaves, conv
     weights in HWIO matrix form) -> the port's flat dict of tensors, same
@@ -97,8 +117,8 @@ def flat_to_jax(flat: dict) -> dict:
 class _Reader:
     """Records consumed keys so a load can prove it mapped every tensor."""
 
-    def __init__(self, sd: Dict[str, torch.Tensor], device):
-        self.sd, self.device, self.consumed = sd, device, set()
+    def __init__(self, sd: Dict[str, torch.Tensor], device, dtype=torch.float32):
+        self.sd, self.device, self.dtype, self.consumed = sd, device, dtype, set()
 
     def __contains__(self, k):
         return k in self.sd
@@ -107,7 +127,7 @@ class _Reader:
         if k not in self.sd:
             raise KeyError(f"checkpoint is missing key {k!r} (have {len(self.sd)} keys, e.g. {sorted(self.sd)[:3]})")
         self.consumed.add(k)
-        return torch.as_tensor(self.sd[k]).to(self.device, torch.float32)
+        return torch.as_tensor(self.sd[k]).to(self.device, self.dtype)
 
     def unconsumed(self):
         return sorted(k for k in self.sd if k not in self.consumed and not k.endswith("num_batches_tracked"))
@@ -138,12 +158,14 @@ def _wcompute(r, pre):
     return p
 
 
-def from_state_dict(sd: Dict[str, torch.Tensor], cfg: ResNetCfg, *, device="cpu", strict: bool = True) -> Tuple[dict, dict]:
-    """Reference state dict -> ``(params, stats)`` with ``params["feature"]``
-    and, when present, ``params["fc"]``/``params["gnn"]`` (GnnNet) and
-    ``params["classifier"]`` (baseline pretraining).  Trunk blocks start at
-    index 4 after [conv1, bn1, relu, pool] (backbone.py:416-424)."""
-    r = _Reader(sd, device)
+def from_state_dict(sd: Dict[str, torch.Tensor], cfg: ResNetCfg, *, device="cpu", strict: bool = True,
+                    dtype=torch.float32) -> Tuple[dict, dict]:
+    """Reference state dict -> ``(params, stats)`` of ``dtype`` with
+    ``params["feature"]`` and, when present, ``params["fc"]``/``params["gnn"]``
+    (GnnNet) and ``params["classifier"]`` (baseline pretraining); a ProtoNet
+    state is the feature trunk alone.  Trunk blocks start at index 4 after
+    [conv1, bn1, relu, pool] (backbone.py:416-424)."""
+    r = _Reader(sd, device, dtype)
     feature = {"stem_conv": r["feature.trunk.0.weight"], "stem_bn": _bn(r, "feature.trunk.1"), "stages": []}
     stats = {"stem_bn": _bn_run(r, "feature.trunk.1"), "stages": []}
     idx = 4

@@ -12,7 +12,7 @@ the kernel's products run on the tensor cores as the three-term bf16 split
   pass and the product, and counts as one launch in ``LAUNCHES``.  Its
   gradient is a ``torch.autograd.Function`` whose backward is the
   plain-torch form of the JAX custom VJP (``_edge_bwd``, itself plain XLA on
-  the TPU).
+  the TPU), inside the profiler range ``edge_abs_diff_matmul:backward``.
 * On a CPU tensor it computes :func:`edge_abs_diff_matmul_reference`, the
   plain version the tests hold against JAX and ``chip_smoke.py`` holds the
   kernel against on the card.
@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.profiler import record_function
 
 #: launches of the CUDA kernel in this process (read by chip_smoke.py)
 LAUNCHES = 0
@@ -130,7 +131,8 @@ class _EdgeAbsDiffMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return _edge_bwd(x, w, g)
+        with record_function("edge_abs_diff_matmul:backward"):  # a profile reads the plain backward's device time
+            return _edge_bwd(x, w, g)
 
 
 def edge_abs_diff_matmul(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -27,8 +27,13 @@ def classifier_logits(p: dict, feats: torch.Tensor) -> torch.Tensor:
 
 def ce_loss(logits: torch.Tensor, labels: torch.Tensor, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE, or with per-row ``weights`` the weighted mean (the ragged
-    last minibatch under static shapes).  Taken in f32."""
-    ce = F.cross_entropy(logits.float(), labels, reduction="none")
+    last minibatch under static shapes).  Taken in at least f32."""
+    ce = F.cross_entropy(logits.to(torch.promote_types(logits.dtype, torch.float32)), labels, reduction="none")
     if weights is None:
         return ce.mean()
     return (ce * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+def top1_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose argmax is the label (a fraction, not a percent)."""
+    return (logits.argmax(dim=-1) == labels).float().mean()

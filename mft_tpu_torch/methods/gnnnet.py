@@ -13,7 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from mft_tpu_torch.core.episode import EpisodeSpec, support_onehot_with_query_slot
+from mft_tpu_torch.core.episode import EpisodeSpec, query_labels, support_onehot_with_query_slot
+from mft_tpu_torch.methods.baseline import ce_loss
 from mft_tpu_torch.models.gnn import GNNCfg, apply_gnn, init_gnn
 from mft_tpu_torch.ops.convpool import linear
 from mft_tpu_torch.ops.initializers import bn_params, torch_linear
@@ -79,3 +80,8 @@ def gnn_scores(head: dict, z_episode: torch.Tensor, cfg: GnnNetCfg, n_query: int
     out = apply_gnn(head["gnn"], graphs, cfg.use_pallas)  # [n_query, N, n_way]
     out = out.reshape(n_query, n_way, s1, n_way)[:, :, -1]
     return out.transpose(0, 1).reshape(n_way * n_query, n_way)
+
+
+def gnnnet_loss(scores: torch.Tensor, n_way: int, n_query: int) -> torch.Tensor:
+    """Mean CE of the class-major scores against ``repeat(range(n_way), n_query)``."""
+    return ce_loss(scores, query_labels(EpisodeSpec(n_way, 0, n_query), scores.device))

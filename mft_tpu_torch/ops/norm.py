@@ -56,7 +56,8 @@ def batch_norm(
 
     Returns ``(y, new_stats)``; ``new_stats`` is ``stats`` unless
     ``use_batch_stats and update_stats``, where the running update uses the
-    unbiased batch variance with torch's ``new = (1-m)*old + m*batch``."""
+    unbiased batch variance with torch's ``new = (1-m)*old + m*batch``,
+    detached from the autograd graph."""
     in_dtype = x.dtype
     x = x.to(torch.promote_types(in_dtype, torch.float32))
     cd = channel_dim % x.ndim
@@ -67,11 +68,14 @@ def batch_norm(
         mean, var, count = _masked_moments(x, reduce_dims, sample_mask)
         new_stats = stats
         if update_stats and stats is not None:
-            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
-            new_stats = {
-                "mean": (1.0 - momentum) * stats["mean"] + momentum * mean.reshape(-1),
-                "var": (1.0 - momentum) * stats["var"] + momentum * unbiased.reshape(-1),
-            }
+            # running statistics are never differentiated: built without a
+            # graph, so a training step's graph does not live on in them
+            with torch.no_grad():
+                unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+                new_stats = {
+                    "mean": (1.0 - momentum) * stats["mean"] + momentum * mean.reshape(-1),
+                    "var": (1.0 - momentum) * stats["var"] + momentum * unbiased.reshape(-1),
+                }
     else:
         if stats is None:
             raise ValueError("eval-mode BN requires running stats")

@@ -80,3 +80,42 @@ def inner_fit(loss_fn: Callable, params, tx, gen: Optional[torch.Generator], cfg
             updates, state = tx.update(pytree.tree_unflatten(list(grads), spec), state, frozen)
             leaves = [p.detach() + u.to(p.dtype) for p, u in zip(live, pytree.tree_leaves(updates))]
     return pytree.tree_unflatten(leaves, spec)
+
+
+def inner_fit_carry(loss_fn: Callable, params, carry, tx, gen: Optional[torch.Generator], cfg: InnerLoopCfg,
+                    schedule=None, device="cpu"):
+    """:func:`inner_fit` with a carry that is threaded through the steps but
+    not optimized, detached each step (inner_loop.py:198-233).
+
+    ``loss_fn(params, carry, idx, w) -> (scalar, new_carry)``.  The meta
+    fine-tune's ``minibatch`` BN mode carries the whole running-stat tree
+    through it, as every train-mode inner forward of the reference updates
+    the adapted copy's stats (gnnnet.py:158-187).  Returns
+    ``(adapted_params, final_carry)``."""
+    if cfg.epochs == 0:
+        return params, carry
+    idx_all, w_all = schedule if schedule is not None else minibatch_schedule(gen, cfg, device)
+    leaves, spec = pytree.tree_flatten(params)
+    leaves = [p.detach() for p in leaves]
+    state = tx.init(pytree.tree_unflatten(leaves, spec))
+    for t in range(idx_all.shape[0]):
+        live = [p.requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss, new_carry = loss_fn(pytree.tree_unflatten(live, spec), carry, idx_all[t], w_all[t])
+            grads = torch.autograd.grad(loss, live)
+        carry = pytree.tree_map(torch.Tensor.detach, new_carry)
+        with torch.no_grad():
+            frozen = pytree.tree_unflatten([p.detach() for p in live], spec)
+            updates, state = tx.update(pytree.tree_unflatten(list(grads), spec), state, frozen)
+            leaves = [p.detach() + u.to(p.dtype) for p, u in zip(live, pytree.tree_leaves(updates))]
+    return pytree.tree_unflatten(leaves, spec), carry
+
+
+def fo_maml_reattach(meta_params, adapted_params):
+    """First-order MAML plumbing (inner_loop.py:287-299): a tree equal to
+    ``adapted_params`` whose gradient reaches ``meta_params`` with an
+    identity Jacobian, ``m + (a - m).detach()``.  The outer loss is taken at
+    the adapted point and its gradient lands on the meta-initialization, as
+    the reference's ``MAML_update`` leaves only the outer step on it
+    (gnnnet.py:90-103,183-187; train.py:49-58)."""
+    return pytree.tree_map(lambda m, a: m + (a - m).detach(), meta_params, adapted_params)

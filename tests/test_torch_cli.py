@@ -87,10 +87,14 @@ bad = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", "jaxl
              or k == "mft_tpu" or k.startswith("mft_tpu."))
 print("BAD", bad)
 print("N", sum(k.startswith("mft_tpu_torch") for k in sys.modules))
+need = ["mft_tpu_torch." + m for m in ("cli.train", "train.steps", "methods.protonet", "utils.checkpoint",
+                                         "utils.metrics", "data.pipeline", "train.inner_loop")]
+print("MISSING", [m for m in need if m not in sys.modules])
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    assert int(out.stdout.split("N ")[1].split()[0]) >= 20
+    assert int(out.stdout.split("N ")[1].split()[0]) >= 25
+    assert "MISSING []" in out.stdout, out.stdout
