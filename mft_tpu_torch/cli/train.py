@@ -14,8 +14,10 @@ Stages (reference README commands):
 Episodes and batches are decoded once on the host; augmentation runs on the
 device from a generator seeded by ``--seed``.  Checkpoints are the
 reference's ``<epoch>.tar`` (``utils/checkpoint.py``), which the port's eval
-reads.  Not ported: DampNet (ROADMAP Queue 1 item 16), 50-shot
-(``--n_shot >= 50``, item 15) and backbones other than ResNet10 (item 18).
+reads.  At ``--n_shot >= 50`` the GnnNet head is the compressed 50-shot
+variant (reference train_50.py, gnnnet_copy.py; ``cli/train_50.py`` pins
+its defaults).  Not ported: DampNet (ROADMAP Queue 1 item 16) and
+backbones other than ResNet10 (item 18).
 
 Run: ``python -m mft_tpu_torch.cli.train --method gnnnet --dataset
 miniImageNet --n_shot 5 --train_aug --use_pallas --stop_epoch 400``
@@ -64,8 +66,9 @@ def _no_observer(stage: str, epoch: int, step: int):
 def build_model(gen: torch.Generator, method: str, model_name: str, n_way: int, n_support: int, num_classes: int,
                 *, use_pallas: bool = False, device="cpu"):
     """``(bcfg, gcfg, params, stats)``, drawn from ``gen``: the backbone,
-    then the head (the baseline's classifier or GnnNet's fc + GNN; ProtoNet
-    has none)."""
+    then the head (the baseline's classifier or GnnNet's fc + GNN, the
+    pair-averaging 50-shot variant at ``n_support >= 50``; ProtoNet has
+    none)."""
     bcfg = bb.MODEL_REGISTRY[model_name]()
     feature, stats = bb.init_backbone(gen, bcfg, device=device)
     gcfg = None
@@ -74,7 +77,8 @@ def build_model(gen: torch.Generator, method: str, model_name: str, n_way: int, 
     elif method == "protonet":
         params = {"feature": feature}
     else:
-        gcfg = gn.GnnNetCfg(feat_dim=bcfg.feat_dim, n_way=n_way, n_support=n_support, use_pallas=use_pallas)
+        gcfg = gn.GnnNetCfg(feat_dim=bcfg.feat_dim, n_way=n_way, n_support=n_support,
+                            support_compress=2 if n_support >= 50 else 1, use_pallas=use_pallas)
         params = {"feature": feature, **gn.init_head(gen, gcfg, device=device)}
     return bcfg, gcfg, params, stats
 
@@ -84,7 +88,6 @@ def _refuse_unported(a):
         f"--method {a.method} (ROADMAP Queue 1 item 16, DampNet)": a.method.startswith("dampnet"),
         f"--method {a.method}": a.method not in ("baseline", "gnnnet", "protonet") and not a.method.startswith("dampnet"),
         f"--model {a.model} (ROADMAP Queue 1 item 18, the other backbones)": a.model not in bb.MODEL_REGISTRY,
-        "--n_shot >= 50 (ROADMAP Queue 1 item 15, 50-shot)": a.n_shot >= 50,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:

@@ -3,9 +3,8 @@ drivers (port of ``mft_tpu/config.py``; the logic is a copy, the flags are
 those of the JAX drivers that the port implements, plus ``--device``).
 
 Only flags that the port acts on are defined, so argparse rejects the JAX
-drivers' others (eval: ``--bn_mode``, ``--freeze_backbone``,
-``--eval_batch``, ``--episode_manifest``; both: ``--episode_cache``,
-``--trace_dir`` and the dampnet-only flags).
+drivers' others (eval: ``--freeze_backbone``, ``--eval_batch``; both:
+``--episode_cache``, ``--trace_dir`` and the dampnet-only flags).
 """
 
 from __future__ import annotations
@@ -78,7 +77,7 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--dataset", default="miniImageNet", help="training base dataset (checkpoint dir)")
     ap.add_argument("--test_dataset", default="", help="cross-domain test dataset")
     ap.add_argument("--model", default="ResNet10", help="backbone architecture")
-    ap.add_argument("--method", default="baseline", help="all | gnnnet | baseline")
+    ap.add_argument("--method", default="baseline", help="all | gnnnet | gnnnet_maml | baseline | protonet")
     ap.add_argument("--train_n_way", default=5, type=int)
     ap.add_argument("--test_n_way", default=5, type=int)
     ap.add_argument("--n_shot", default=5, type=int)
@@ -97,6 +96,13 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--use_pallas", action="store_true", help="the CUDA edge kernel in the GNN head")
     ap.add_argument("--inner_scan", default="eager", choices=["eager", "fused"],
                     help="the GNN member's inner loop: one eager step per minibatch, or the fused CUDA scan")
+    ap.add_argument("--bn_mode", default="episode", choices=["episode", "minibatch"],
+                    help="inner loop: the final block on a frozen-trunk feature bank (episode), or the whole backbone "
+                         "on every minibatch (minibatch, the reference's own semantics)")
+    ap.add_argument("--episode_manifest", default=None,
+                    help="JSON of recorded episodes ({'episodes': [...]}: n_way lists of n_shot + n_query paths) to "
+                         "replay instead of sampling; --iter_num becomes its length")
+    ap.add_argument("--episode_manifest_root", default=None, help="base directory of the manifest's relative paths")
     a = ap.parse_args(argv)
     if a.base_size <= 0:
         a.base_size = int(a.image_size * 1.15)

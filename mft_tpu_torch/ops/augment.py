@@ -193,3 +193,18 @@ def center_batch(images: torch.Tensor, size: int, dtype=torch.float32) -> torch.
     lead = images.shape[:-3]
     out = center_view(images.reshape((-1,) + tuple(images.shape[-3:])), size)
     return out.reshape(lead + tuple(out.shape[1:]))
+
+
+def make_eval_replicas(gen: torch.Generator, support_images: torch.Tensor, cfg: AugmentCfg,
+                       gen_examples: int) -> torch.Tensor:
+    """The eval's whole support bank as images, f32 (the faithful
+    ``bn_mode='minibatch'`` eval).  ``support_images [n_way, n_support, 3,
+    H0, W0]`` -> ``[gen_examples + 3, n_way, n_support, 3, S, S]``: the clean
+    view three times (the reference bank duplicates ``liz_x[0]`` and its
+    second no-aug replica equals the first, finetune.py:93,225-233), then
+    ``gen_examples`` augmented views drawn from ``gen`` one replica after
+    another."""
+    support_images = to_float(support_images)
+    clean = center_batch(support_images, cfg.image_size)
+    augs = [augment_batch(gen, support_images, cfg) for _ in range(gen_examples)]
+    return torch.stack([clean, clean, clean] + augs)

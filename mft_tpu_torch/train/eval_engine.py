@@ -1,14 +1,25 @@
-"""Per-episode transfer fine-tuning — the ``--method all`` eval (port of
-``mft_tpu/train/eval_engine.py``, episode BN mode).
+"""Per-episode transfer fine-tuning — the cross-domain eval (port of
+``mft_tpu/train/eval_engine.py``).
 
-For each episode: clean center views; the frozen trunk embeds the support
-bank once (``_bank_fmap``: the clean support three times, then
-``gen_examples`` augmented replicas); the final residual block (plus a
-throwaway linear head for the linear member) is fine-tuned with batch-5
-torch-Adam steps on that bank (``_adapt_block``); the adapted backbone
-embeds the clean episode with batch-stats BN; the GNN head and the linear
-head score the queries; ``--method all`` sums the two softmaxes
-(reference finetune.py:648-650).
+For each episode: clean center views; the support bank (the clean support
+three times, then ``gen_examples`` augmented replicas); the final residual
+block (plus a throwaway linear head for the linear member) is fine-tuned
+with batch-5 torch-Adam steps on that bank (``_adapt_block``); the adapted
+backbone embeds the clean episode with batch-stats BN; the GNN head, the
+ProtoNet prototypes or the linear head score the queries; ``--method all``
+sums the linear and GNN members' softmaxes (reference finetune.py:648-650).
+
+Two BN modes (``TransferCfg.bn_mode``):
+
+* ``'episode'`` (default, fast): the frozen trunk embeds the bank once
+  (``_bank_fmap``) and each inner step runs the final block alone on its
+  rows of that feature bank;
+* ``'minibatch'`` (faithful): the bank stays images
+  (``ops/augment.make_eval_replicas``) and each inner step runs the whole
+  backbone on its minibatch, so every BN layer of the trunk takes that
+  minibatch's statistics, as the reference's ``pretrained_model(x)`` in
+  train mode does (finetune.py:286).  The gradient still reaches only the
+  final block (and head).
 
 Reference quirks kept (load-bearing for accuracy parity): the GNN member's
 inner loss is CE on the raw 512-d features used as logits; the support bank
@@ -21,8 +32,8 @@ init, minibatch order) comes from the ``torch.Generator`` passed in.
 Each phase of a member runs inside a ``torch.profiler.record_function``
 range named in :data:`PHASES` (``<phase>:<member>``), so a profile of one
 episode splits its host and device time by phase (chip_smoke.py reads
-them); without a profiler each range is one cheap host call, eight per
-episode.
+them); without a profiler each range is one cheap host call, eight or nine
+per episode.
 """
 
 from __future__ import annotations
@@ -37,8 +48,9 @@ from mft_tpu_torch.core.episode import EpisodeSpec, flatten_episode, query_label
 from mft_tpu_torch.kernels import fused_inner_scan as fis
 from mft_tpu_torch.methods.baseline import ce_loss, classifier_logits, init_classifier
 from mft_tpu_torch.methods.gnnnet import GnnNetCfg, gnn_scores
+from mft_tpu_torch.methods.protonet import proto_scores
 from mft_tpu_torch.models import backbone as bb
-from mft_tpu_torch.ops.augment import augment_batch, center_batch, pipeline_dtype, to_float
+from mft_tpu_torch.ops.augment import augment_batch, center_batch, make_eval_replicas, pipeline_dtype, to_float
 from mft_tpu_torch.train import optimizers as opt
 from mft_tpu_torch.train.inner_loop import InnerLoopCfg, inner_fit, minibatch_schedule
 
@@ -62,14 +74,23 @@ class TransferCfg(NamedTuple):
     inner_param_dtype: str = "float32"
     #: the GNN member's inner loop: 'eager' (one autodiff step per minibatch,
     #: train/inner_loop.py) or 'fused' (the whole scan in hand-written CUDA
-    #: kernels, kernels/fused_inner_scan.py; needs bf16 Adam moments).  The
-    #: linear member trains a head too and always runs eager.
+    #: kernels, kernels/fused_inner_scan.py; needs bf16 Adam moments and the
+    #: episode BN mode's feature bank).  The linear member trains a head too
+    #: and always runs eager.
     inner_scan: str = "eager"
+    #: 'episode' (frozen-trunk feature bank, fast) | 'minibatch' (the whole
+    #: backbone on every inner minibatch, faithful)
+    bn_mode: str = "episode"
 
 
 def bank_labels(spec: EpisodeSpec, replicas: int, device="cpu") -> torch.Tensor:
     """Labels of the stacked support bank: ``[replicas * n_way * n_support]``."""
     return support_labels(spec, device).repeat(replicas)
+
+
+def _bank_images(replicas: torch.Tensor) -> torch.Tensor:
+    """``[R, n_way, n_support, 3, S, S]`` -> ``[R * n_way * n_support, 3, S, S]``."""
+    return replicas.reshape((-1,) + tuple(replicas.shape[3:]))
 
 
 @torch.no_grad()
@@ -101,15 +122,41 @@ def _bank_fmap(trunk_p, trunk_s, support_base: torch.Tensor, gen: Optional[torch
     return torch.cat(groups)
 
 
-def _prepare_adapt(params, stats, bank_y, fmap_bank, *, bcfg: bb.ResNetCfg, tcfg: TransferCfg, epochs: int,
-                   head: Optional[dict], perm_span: Optional[int] = None):
+def _member_bank(backbone_params, backbone_stats, support_bank, gen, *, bcfg, aug_cfg, gen_examples: int,
+                 clean_only: bool = False):
+    """One member's bank ``(fmap_bank, bank_x, n_replicas)`` for
+    :func:`_adapt_block`.  A raw support ``[n_way, n_support, 3, H0, W0]``
+    (episode mode) becomes the frozen trunk's feature bank; a replica bank
+    ``[R, n_way, n_support, 3, S, S]`` (minibatch mode) stays images, whole:
+    ``clean_only`` does not cut it, the linear member's ``perm_span`` keeps
+    its steps on replica 0, the clean group (eval_engine.py:417-432 of the
+    JAX package)."""
+    if support_bank.dim() == 6:
+        return None, _bank_images(support_bank), support_bank.shape[0]
+    trunk_p, _ = bb.adapt_split(backbone_params)
+    trunk_s, _ = bb.adapt_split(backbone_stats)
+    fmap = _bank_fmap(trunk_p, trunk_s, support_bank, gen, bcfg=bcfg, aug_cfg=aug_cfg, gen_examples=gen_examples,
+                      clean_only=clean_only)
+    return fmap, None, (1 if clean_only else gen_examples + 3)
+
+
+def _prepare_adapt(params, stats, bank_y, *, bcfg: bb.ResNetCfg, tcfg: TransferCfg, epochs: int,
+                   head: Optional[dict], perm_span: Optional[int] = None, fmap_bank: Optional[torch.Tensor] = None,
+                   bank_x: Optional[torch.Tensor] = None):
     """One member's inner-loop task ``(p0, loss_fn, tx, icfg, finish)`` with
     ``finish(adapted) -> (block, head)``: the adapted tree is the final
-    block (GNN member) or ``{"adapt": block, "head": head}`` (linear member),
-    and each step gathers its minibatch rows of the feature bank."""
-    _, block_p = bb.adapt_split(params)
+    block (GNN member) or ``{"adapt": block, "head": head}`` (linear member).
+    Exactly one bank is given: ``fmap_bank`` (each step gathers its rows of
+    the trunk's feature bank and runs the final block) or ``bank_x`` (each
+    step gathers its images and runs the whole backbone, batch statistics
+    masked by the step's weights in every BN layer; the trunk is a constant,
+    so only the block and the head get gradients)."""
+    if (fmap_bank is None) == (bank_x is None):
+        raise ValueError("give exactly one of fmap_bank (episode BN mode) and bank_x (minibatch BN mode)")
+    trunk_p, block_p = bb.adapt_split(params)
     _, block_s = bb.adapt_split(stats)
-    span = perm_span if perm_span is not None else fmap_bank.shape[0]
+    bank = fmap_bank if fmap_bank is not None else bank_x
+    span = perm_span if perm_span is not None else bank.shape[0]
     icfg = InnerLoopCfg(epochs=epochs, batch_size=tcfg.batch_size, bank_size=span)
     if tcfg.inner_param_dtype != "float32":
         pd = getattr(torch, tcfg.inner_param_dtype)
@@ -118,7 +165,11 @@ def _prepare_adapt(params, stats, bank_y, fmap_bank, *, bcfg: bb.ResNetCfg, tcfg
         head = cast(head) if head is not None else None
 
     def features_of(block, idx, w):
-        return bb.apply_final_block(block, block_s, fmap_bank[idx], cfg=bcfg, train=True, sample_mask=w)
+        if fmap_bank is not None:
+            return bb.apply_final_block(block, block_s, fmap_bank[idx], cfg=bcfg, train=True, sample_mask=w)
+        feats, _ = bb.apply_backbone(bb.adapt_merge(trunk_p, block), stats, bank_x[idx], cfg=bcfg, train=True,
+                                     sample_mask=w)
+        return feats
 
     adam = opt.torch_adam if tcfg.opt_state_dtype == "float32" else opt.torch_adam_lowmem
     if head is None:
@@ -164,23 +215,36 @@ def _adapt_block_fused(block_p, bank_y, fmap_bank, gen, *, bcfg, tcfg, icfg: Inn
     return fis.flat_to_block(adapted, geom)
 
 
-def _adapt_block(params, stats, bank_y, fmap_bank, gen, *, bcfg, tcfg, epochs, head=None, perm_span=None,
-                 schedule=None):
-    """Fine-tune the final block (and the optional head) on the feature
-    bank.  ``perm_span``: the permutations cover only the first rows (the
-    linear member's clean-support-only quirk).  Returns ``(block, head)``.
-    ``tcfg.inner_scan == 'fused'`` sends the head-less (GNN) member through
-    the fused scan; with a head the loop stays eager."""
+def _check_modes(tcfg: TransferCfg):
     if tcfg.inner_scan not in ("eager", "fused"):
         raise ValueError(f"inner_scan must be 'eager' or 'fused', not {tcfg.inner_scan!r}")
+    if tcfg.bn_mode not in ("episode", "minibatch"):
+        raise ValueError(f"bn_mode must be 'episode' or 'minibatch', not {tcfg.bn_mode!r}")
+    if tcfg.inner_scan == "fused" and tcfg.bn_mode == "minibatch":
+        raise ValueError("inner_scan='fused' scans the final block over the episode BN mode's frozen-trunk feature "
+                         "bank; bn_mode='minibatch' runs the whole backbone every step and needs inner_scan='eager'")
+
+
+def _adapt_block(params, stats, bank_y, gen, *, bcfg, tcfg, epochs, head=None, perm_span=None, fmap_bank=None,
+                 bank_x=None, schedule=None):
+    """Fine-tune the final block (and the optional head) on one bank (see
+    :func:`_prepare_adapt`).  ``perm_span``: the permutations cover only
+    the first rows (the linear member's clean-support-only quirk).  Returns
+    ``(block, head)``.  ``tcfg.inner_scan == 'fused'`` sends the head-less
+    (GNN) member through the fused scan; with a head the loop stays eager."""
+    _check_modes(tcfg)
+    if tcfg.inner_scan == "fused" and bank_x is not None:
+        raise ValueError("inner_scan='fused' needs a feature bank (bn_mode='episode')")
     p0, loss_fn, tx, icfg, finish = _prepare_adapt(
-        params, stats, bank_y, fmap_bank, bcfg=bcfg, tcfg=tcfg, epochs=epochs, head=head, perm_span=perm_span,
+        params, stats, bank_y, bcfg=bcfg, tcfg=tcfg, epochs=epochs, head=head, perm_span=perm_span,
+        fmap_bank=fmap_bank, bank_x=bank_x,
     )
+    bank = fmap_bank if fmap_bank is not None else bank_x
     if tcfg.inner_scan == "fused" and head is None:
         with torch.no_grad():
             return finish(_adapt_block_fused(p0, bank_y, fmap_bank, gen, bcfg=bcfg, tcfg=tcfg, icfg=icfg,
                                              schedule=schedule))
-    return finish(inner_fit(loss_fn, p0, tx, gen, icfg, schedule=schedule, device=fmap_bank.device))
+    return finish(inner_fit(loss_fn, p0, tx, gen, icfg, schedule=schedule, device=bank.device))
 
 
 @torch.no_grad()
@@ -191,44 +255,72 @@ def _embed_episode(params, stats, episode: torch.Tensor, *, bcfg, spec: EpisodeS
     return feats.reshape(spec.n_way, spec.n_per_class, -1)
 
 
+def _finetune_features(backbone_params, backbone_stats, episode, support_bank, gen, *, bcfg, spec: EpisodeSpec,
+                       tcfg: TransferCfg, aug_cfg, gen_examples: int = 0, inner_schedule=None,
+                       member: str = "gnn") -> torch.Tensor:
+    """The head-agnostic core of the reference's ``finetune()``
+    (finetune.py:182-306), shared by the GNN and ProtoNet members: the
+    support bank, ``fine_tune_epochs`` of batch-5 Adam on the final block
+    (features-as-logits inner loss), then the clean episode embedded by the
+    adapted backbone with batch-stats BN.  Returns ``[n_way, s+q, feat]``.
+    ``support_bank``: the raw support (episode mode) or the replica bank
+    (minibatch mode); ``member`` names the profiler ranges."""
+    with record_function(f"bank_fmap:{member}"):
+        fmap, bank_x, n_rep = _member_bank(backbone_params, backbone_stats, support_bank, gen, bcfg=bcfg,
+                                           aug_cfg=aug_cfg, gen_examples=gen_examples)
+    bank_y = bank_labels(spec, n_rep, support_bank.device)
+    with record_function(f"adapt:{member}"):
+        block, _ = _adapt_block(backbone_params, backbone_stats, bank_y, gen, bcfg=bcfg, tcfg=tcfg,
+                                epochs=tcfg.fine_tune_epochs, fmap_bank=fmap, bank_x=bank_x, schedule=inner_schedule)
+    trunk_p, _ = bb.adapt_split(backbone_params)
+    with record_function(f"embed:{member}"):
+        return _embed_episode(bb.adapt_merge(trunk_p, block), backbone_stats, episode, bcfg=bcfg, spec=spec)
+
+
 def gnn_member_scores(backbone_params, backbone_stats, head, episode, support_bank, gen, *, bcfg, gcfg: GnnNetCfg,
                       spec: EpisodeSpec, tcfg: TransferCfg, aug_cfg, gen_examples: int = 0, inner_schedule=None):
     """finetune() with the GNN head (finetune.py:182-328) -> softmax scores
     ``[n_way * n_query, n_way]``.  ``support_bank``: raw support
-    ``[n_way, n_support, 3, H0, W0]``; ``inner_schedule``: explicit
-    ``(idx, w)`` instead of the draw from ``gen``."""
-    trunk_p, _ = bb.adapt_split(backbone_params)
-    trunk_s, _ = bb.adapt_split(backbone_stats)
-    with record_function("bank_fmap:gnn"):
-        fmap = _bank_fmap(trunk_p, trunk_s, support_bank, gen, bcfg=bcfg, aug_cfg=aug_cfg, gen_examples=gen_examples)
-    bank_y = bank_labels(spec, gen_examples + 3, fmap.device)
-    with record_function("adapt:gnn"):
-        block, _ = _adapt_block(backbone_params, backbone_stats, bank_y, fmap, gen, bcfg=bcfg, tcfg=tcfg,
-                                epochs=tcfg.fine_tune_epochs, schedule=inner_schedule)
-    with record_function("embed:gnn"):
-        feats = _embed_episode(bb.adapt_merge(trunk_p, block), backbone_stats, episode, bcfg=bcfg, spec=spec)
+    ``[n_way, n_support, 3, H0, W0]`` (episode mode) or the replica bank
+    ``[R, n_way, n_support, 3, S, S]`` (minibatch mode); ``inner_schedule``:
+    explicit ``(idx, w)`` instead of the draw from ``gen``."""
+    feats = _finetune_features(backbone_params, backbone_stats, episode, support_bank, gen, bcfg=bcfg, spec=spec,
+                               tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples, inner_schedule=inner_schedule)
     with torch.no_grad(), record_function("score:gnn"):
         return torch.softmax(gnn_scores(head, feats, gcfg, spec.n_query), dim=1)
+
+
+def proto_member_scores(backbone_params, backbone_stats, episode, support_bank, gen, *, bcfg, spec: EpisodeSpec,
+                        tcfg: TransferCfg, aug_cfg, gen_examples: int = 0, inner_schedule=None):
+    """finetune() with the ProtoNet head (``--method protonet``,
+    finetune.py:441-442,619; protonet.py:30-39): the GNN member's block
+    adaptation (finetune() is head-agnostic), scored by negative squared
+    distances to the adapted support prototypes."""
+    feats = _finetune_features(backbone_params, backbone_stats, episode, support_bank, gen, bcfg=bcfg, spec=spec,
+                               tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples, inner_schedule=inner_schedule,
+                               member="protonet")
+    with torch.no_grad(), record_function("score:protonet"):
+        return torch.softmax(proto_scores(feats[:, : spec.n_support], feats[:, spec.n_support :], spec), dim=1)
 
 
 def linear_member_scores(backbone_params, backbone_stats, episode, support_bank, gen, *, bcfg, spec: EpisodeSpec,
                          tcfg: TransferCfg, aug_cfg, gen_examples: int = 0, inner_schedule=None, head0=None):
     """finetune_linear (finetune.py:45-174) -> softmax scores.  Trains on
-    the clean support only, so no augmented group is built.
+    the clean support only: in the episode mode no augmented group is
+    built; in the minibatch mode the steps stay on replica 0.
     ``head0``: explicit classifier init instead of the draw from ``gen``."""
     trunk_p, _ = bb.adapt_split(backbone_params)
-    trunk_s, _ = bb.adapt_split(backbone_stats)
     dev = support_bank.device
     if head0 is None:
         head0 = init_classifier(gen, bcfg.feat_dim, spec.n_way, zero_bias=False, device=dev)
     with record_function("bank_fmap:linear"):
-        fmap = _bank_fmap(trunk_p, trunk_s, support_bank, gen, bcfg=bcfg, aug_cfg=aug_cfg,
-                          gen_examples=gen_examples, clean_only=True)
-    bank_y = bank_labels(spec, 1, dev)
+        fmap, bank_x, n_rep = _member_bank(backbone_params, backbone_stats, support_bank, gen, bcfg=bcfg,
+                                           aug_cfg=aug_cfg, gen_examples=gen_examples, clean_only=True)
+    bank_y = bank_labels(spec, n_rep, dev)
     with record_function("adapt:linear"):
-        block, head = _adapt_block(backbone_params, backbone_stats, bank_y, fmap, gen, bcfg=bcfg, tcfg=tcfg,
+        block, head = _adapt_block(backbone_params, backbone_stats, bank_y, gen, bcfg=bcfg, tcfg=tcfg,
                                    epochs=tcfg.linear_epochs, head=head0, perm_span=spec.support_size,
-                                   schedule=inner_schedule)
+                                   fmap_bank=fmap, bank_x=bank_x, schedule=inner_schedule)
     with record_function("embed:linear"):
         feats = _embed_episode(bb.adapt_merge(trunk_p, block), backbone_stats, episode, bcfg=bcfg, spec=spec)
     with torch.no_grad(), record_function("score:linear"):
@@ -239,7 +331,7 @@ def linear_member_scores(backbone_params, backbone_stats, episode, support_bank,
 def ensemble_episode_scores(baseline_params, baseline_stats, gnn_params, gnn_stats, gnn_head, episode, support_bank,
                             gen, *, bcfg, gcfg, spec, tcfg, aug_cfg, gen_examples: int = 0):
     """--method all: softmax(linear member) + softmax(GNN member), the two
-    members run back to back (finetune.py:648-650)."""
+    members run back to back on the same support bank (finetune.py:648-650)."""
     kw = dict(bcfg=bcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples)
     s_lin = linear_member_scores(baseline_params, baseline_stats, episode, support_bank, gen, **kw)
     s_gnn = gnn_member_scores(gnn_params, gnn_stats, gnn_head, episode, support_bank, gen, gcfg=gcfg, **kw)
@@ -258,25 +350,38 @@ def mean_ci95(acc_all) -> tuple:
     return float(acc_all.mean()), float(1.96 * acc_all.std() / np.sqrt(len(acc_all)))
 
 
+#: the eval methods of the port
+METHODS = ("all", "gnnnet", "gnnnet_maml", "baseline", "protonet")
+
+
 def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: EpisodeSpec, tcfg: TransferCfg,
                       aug_cfg, gen_examples: int):
     """The per-episode eval: ``fn(models, base_episode, gen) -> (scores, acc)``
     with ``base_episode`` uint8 ``[n_way, s+q, 3, H0, W0]`` on the device and
-    ``models`` holding ``baseline=(params, stats)`` and/or
-    ``gnn=(params, stats, head)``."""
-    if method not in ("all", "gnnnet", "baseline"):
-        raise ValueError(f"the port evaluates --method all|gnnnet|baseline, not {method!r}")
+    ``models`` holding what ``method`` reads: ``baseline=(params, stats)``
+    (``all``, ``baseline``), ``gnn=(params, stats, head)`` (``all``,
+    ``gnnnet``, ``gnnnet_maml``) or ``protonet=(params, stats)``.  In the
+    minibatch BN mode the replica bank is built once per episode and both
+    members of ``--method all`` train on it."""
+    if method not in METHODS:
+        raise ValueError(f"the port evaluates --method {'|'.join(METHODS)}, not {method!r}")
+    _check_modes(tcfg)
 
     def one_episode(models, base_episode: torch.Tensor, gen: torch.Generator):
         dt = pipeline_dtype(bcfg.compute_dtype)
         with torch.no_grad():
             episode = center_batch(base_episode, aug_cfg.image_size, dtype=dt)
-        support = base_episode[:, : spec.n_support]
+            support = base_episode[:, : spec.n_support]
+            if tcfg.bn_mode == "minibatch":
+                with record_function("bank_fmap:replicas"):
+                    support = make_eval_replicas(gen, support, aug_cfg, gen_examples)
         kw = dict(bcfg=bcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples)
         if method == "all":
             scores = ensemble_episode_scores(*models["baseline"], *models["gnn"], episode, support, gen, gcfg=gcfg, **kw)
-        elif method == "gnnnet":
+        elif method in ("gnnnet", "gnnnet_maml"):
             scores = gnn_member_scores(*models["gnn"], episode, support, gen, gcfg=gcfg, **kw)
+        elif method == "protonet":
+            scores = proto_member_scores(*models["protonet"], episode, support, gen, **kw)
         else:
             scores = linear_member_scores(*models["baseline"], episode, support, gen, **kw)
         return scores, episode_accuracy(scores, spec)

@@ -66,11 +66,13 @@ def test_entry_point_needs_a_card_unless_cpu_is_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             finetune.main(["--method", "all", "--test_dataset", "synthetic"])
-    with pytest.raises(NotImplementedError, match="--method protonet"):
-        finetune.main(["--device", "cpu", "--method", "protonet", "--test_dataset", "synthetic"])
+    with pytest.raises(NotImplementedError, match="--method dampnet_full_class .*item 16"):
+        finetune.main(["--device", "cpu", "--method", "dampnet_full_class", "--test_dataset", "synthetic"])
+    with pytest.raises(NotImplementedError, match="--method relationnet"):
+        finetune.main(["--device", "cpu", "--method", "relationnet", "--test_dataset", "synthetic"])
     # flags of the JAX driver that the port does not implement are not defined
     with pytest.raises(SystemExit):
-        finetune.main(["--device", "cpu", "--method", "all", "--test_dataset", "synthetic", "--bn_mode", "minibatch"])
+        finetune.main(["--device", "cpu", "--method", "all", "--test_dataset", "synthetic", "--eval_batch", "2"])
 
 
 def test_port_imports_neither_jax_nor_mft_tpu():
@@ -88,7 +90,8 @@ bad = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", "jaxl
 print("BAD", bad)
 print("N", sum(k.startswith("mft_tpu_torch") for k in sys.modules))
 need = ["mft_tpu_torch." + m for m in ("cli.train", "train.steps", "methods.protonet", "utils.checkpoint",
-                                         "utils.metrics", "data.pipeline", "train.inner_loop")]
+                                         "utils.metrics", "data.pipeline", "train.inner_loop", "cli.finetune_50",
+                                         "cli.train_50")]
 print("MISSING", [m for m in need if m not in sys.modules])
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -158,8 +158,6 @@ def test_refusals():
             train.main(["--dataset", "synthetic"])
     with pytest.raises(NotImplementedError, match="item 16"):
         train.main(COMMON + ["--method", "dampnet_full_class"])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train.main(COMMON + ["--method", "gnnnet", "--n_shot", "50"])
     with pytest.raises(NotImplementedError, match="item 18"):
         train.main(COMMON + ["--model", "ResNet10_FW"])
     for flag in (["--episode_cache", "x"], ["--trace_dir", "x"], ["--unsupervised", "x"]):
