@@ -224,10 +224,34 @@ TRAIN_FT_FACTOR = 3.0
 TRAIN_FT_CAP = 1e-2
 TRAIN_FT_DISAGREE_CAP = 0.25
 TRAIN_FT_FAULT = "fo_maml_reattach dropped, the adapted block detached"
+#: the DampNet step (dampnet_full_class at its published widths) on the card
+#: against the CPU, in each training mode, holds the episodic step's rules
+#: above with the CPU replaying the card's ReLU decisions (ReluDecisions,
+#: RELU_REACH): the backbone's, the recovery network's MLP ReLUs and, since
+#: the first call on the card, the GNN's leaky ReLUs.  There DampNet's GNN
+#: runs the plain edge op on the card, and 2-6 edge activations a call lay
+#: within 6.3e-8 to 4.5e-6 of 0 (as a share of the call's largest) with the
+#: two devices on opposite sides: grad_worst read 9.3 (plain) and 2.0
+#: (recover) with each device's own decisions, 0.19 and 0.53 with the card's.
+#: One rule differs: the update.  The bilinear NTN's weight gradient is an
+#: outer product, a_k * p_i * x_j, so one unit k whose gradient a_k is a sum
+#: that cancels to f32 noise flips the sign of a whole 512 x 512 slice of
+#: elements: the recover step read 3.6e-3 of the update elements apart on the
+#: first call, equal decisions or not.  How far is measured in the same run:
+#: the CPU's f32 step against f64; the card may part from the CPU in at most
+#: DAMP_UPDATE_FACTOR times that share of the update elements (and never
+#: fewer than 1 - TRAIN_UPDATE_SHARE).  A fault per mode that the rules must
+#: catch, planted on the card (DAMP_FAULTS)
+DAMP_UPDATE_FACTOR = 3.0
+DAMP_FAULTS = {"plain": "backbone features detached, the head trains alone",
+               "corrupt": "fc.linear left trainable on a corrupt step",
+               "recover": "mult and add swapped"}
 #: full-width training stages through cli.train.main (224 px, synthetic):
 #: baseline batches (480 images at batch 16), episodic and fine-tune episodes
-#: (5-way 5-shot, 16 queries); the step profiled (0 is the warm-up)
-TRAIN_EPISODES = {"episodic": 6, "fine_tune": 4, "train50": 4}
+#: (5-way 5-shot, 16 queries); the step profiled (0 is the warm-up).  The
+#: prototype DampNet variant takes 5 steps: plain, then corrupt and recover
+#: alternating
+TRAIN_EPISODES = {"episodic": 6, "fine_tune": 4, "train50": 4, "dampnet_full_class": 4, "dampnet": 5}
 PROFILED_STEP = 2
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
 #: the tensor cores, HBM3
@@ -1197,10 +1221,11 @@ class ReluDecisions:
     one run, or, given ``replay``, makes a run take another run's decisions,
     call by call, and records where they differ from its own: ``flips``
     holds ``(call, elements, largest |input| among them as a share of the
-    call's largest |input|)``."""
+    call's largest |input|)``.  ``leaky``: the GNN's leaky ReLUs
+    (``torch.nn.functional.leaky_relu``) too."""
 
-    def __init__(self, torch, replay=None):
-        self.torch, self.replay, self.masks, self.flips = torch, replay, [], []
+    def __init__(self, torch, replay=None, leaky=False):
+        self.torch, self.replay, self.masks, self.flips, self.leaky = torch, replay, [], [], leaky
 
     def _decide(self, x):
         own = x.detach() > 0
@@ -1224,12 +1249,23 @@ class ReluDecisions:
             m = self._decide(x)
             return relu(x) if m is None else x * m.to(x.dtype)
 
-        self._patch = mock.patch.object(self.torch, "relu", my_relu)
-        self._patch.start()
+        self._patches = [mock.patch.object(self.torch, "relu", my_relu)]
+        if self.leaky:
+            functional = self.torch.nn.functional
+            leaky = functional.leaky_relu
+
+            def my_leaky(x, negative_slope=0.01, inplace=False):
+                m = self._decide(x)
+                return leaky(x, negative_slope) if m is None else self.torch.where(m, x, x * negative_slope)
+
+            self._patches.append(mock.patch.object(functional, "leaky_relu", my_leaky))
+        for p in self._patches:
+            p.start()
         return self
 
     def __exit__(self, *exc):
-        self._patch.stop()
+        for p in self._patches:
+            p.stop()
         return False
 
     def within_reach(self) -> bool:
@@ -1372,6 +1408,140 @@ def phase_train_cross_device(torch, dev):
             fail(f"the card's {stage} training step parts from the CPU's: {bad}")
 
 
+def _damp_step_readings(torch, dev, model, eps, mode, corrupt_x=None, dtype=None):
+    """One ``dampnet_train_step`` in ``mode`` on ``dev``: ``(loss, gradients,
+    updates, new stats)`` as flat dicts of CPU tensors, as
+    ``_train_step_readings`` gives them; ``dtype`` casts weights, state and
+    inputs."""
+    from torch.utils import _pytree as pytree
+
+    from mft_tpu_torch.train import optimizers as opt
+    from mft_tpu_torch.train import steps
+    from mft_tpu_torch.utils.checkpoint import keyed
+
+    bcfg, dcfg, spec, params, stats, dstate = model
+    to = lambda t: t.to(dev, dtype) if dtype is not None and t.is_floating_point() else t.to(dev)
+    params, stats, dstate = pytree.tree_map(to, params), pytree.tree_map(to, stats), pytree.tree_map(to, dstate)
+    eps = to(eps)
+    cx = None if corrupt_x is None else to(corrupt_x)
+    tx = opt.torch_adam(1e-3)
+    # an optimizer that keeps the step's gradients as its state, and moves nothing
+    grab = opt.Optimizer(lambda p: None, lambda g, st, p: (pytree.tree_map(torch.zeros_like, g), g))
+    kw = dict(mode=mode, bcfg=bcfg, dcfg=dcfg, spec=spec, corrupt_x=cx)
+    _, _, grads, _ = steps.dampnet_train_step(params, stats, None, dstate, eps, None, tx=grab, **kw)
+    new_p, new_s, _, m = steps.dampnet_train_step(params, stats, tx.init(params), dstate, eps, None, tx=tx, **kw)
+    cpu = lambda t: {k: v.detach().cpu() for k, v in keyed(t).items()}
+    before = cpu(params)
+    return float(m["loss"]), cpu(grads), {k: v - before[k] for k, v in cpu(new_p).items()}, cpu(new_s)
+
+
+def phase_dampnet_cross_device(torch, dev):
+    """DampNet on the card against the CPU.  One ``dampnet_train_step``
+    (``dampnet_full_class`` at its published widths, ResNet10, 64 px, strict
+    f32) in each of the modes 'plain', 'corrupt' and 'recover', the same
+    weights, prototypes and inputs; the corrupt step's corruption drawn once
+    on the host (``draw_corruption``, applied to the CPU's features) and fed
+    to both devices as ``corrupt_x``.  The episodic step's rules, the CPU
+    replaying the card's ReLU decisions, and a planted fault per mode
+    (DAMP_FAULTS) that they must catch.  Then the DampNet eval member (the
+    live composition, 32 px, ``make_eval_program``) with the eager inner
+    loop (f32 moments) and the fused scan: XDEV_TOL with no inner steps, the
+    same argmax with one epoch."""
+    from unittest import mock
+
+    import numpy as np
+
+    from mft_tpu_torch.core.episode import EpisodeSpec, flatten_episode
+    from mft_tpu_torch.methods import dampnet as dn
+    from mft_tpu_torch.models import backbone as bb
+    from mft_tpu_torch.ops.augment import AugmentCfg
+    from mft_tpu_torch.train import eval_engine as ee
+    from mft_tpu_torch.train import steps
+
+    g = torch.Generator().manual_seed(7)
+    bcfg, spec = bb.resnet10(), EpisodeSpec(5, 5, 3)
+    dcfg = dn.method_cfg("dampnet_full_class", 512, 5, 5)
+    feature, stats = bb.init_backbone(g, bcfg)
+    head, dstate = dn.init_dampnet(g, dcfg)
+    dstate = dn.update_prototypes(dstate, torch.rand(200, 512, generator=g))
+    model = (bcfg, dcfg, spec, {"feature": feature, **head}, stats, dstate)
+    eps = torch.from_numpy(np.random.RandomState(8).rand(1, 5, 8, 3, 64, 64).astype(np.float32))
+    with torch.no_grad():
+        feats_cpu = bb.apply_backbone(feature, stats, flatten_episode(eps[0]), cfg=bcfg, train=True)[0]
+    corrupt_x = dn.apply_corruption(feats_cpu, dn.draw_corruption(g, 512, prototype=False), scale_bias=True)[None]
+    real_scores, real_fc_gnn, real_recovery = steps.dampnet_scores, dn._fc_gnn_scores, dn.recovery
+    faults = {
+        "plain": mock.patch.object(steps, "dampnet_scores",
+                                   lambda p, st, z, *a, **k: real_scores(p, st, z.detach(), *a, **k)),
+        "corrupt": mock.patch.object(dn, "_fc_gnn_scores",
+                                     lambda p, z, c, q, freeze_head: real_fc_gnn(p, z, c, q, freeze_head=False)),
+        "recover": mock.patch.object(dn, "recovery", lambda *a: real_recovery(*a)[::-1]),
+    }
+    for mode in ("plain", "corrupt", "recover"):
+        cx = corrupt_x if mode == "corrupt" else None
+        rec = ReluDecisions(torch, leaky=True)
+        with rec:
+            card = _damp_step_readings(torch, dev, model, eps, mode, cx)
+        cpu_own = _damp_step_readings(torch, "cpu", model, eps, mode, cx)
+        exact = _damp_step_readings(torch, "cpu", model, eps, mode, cx, dtype=torch.float64)
+        floor = {k: float((v.double() - exact[1][k]).abs().max()) for k, v in cpu_own[1].items()}
+        update_floor = _readings_apart(cpu_own, exact)["update_disagree"]
+        bounds = {"loss": TRAIN_LOSS_TOL, "grad_worst": 1.0, "grad_rel_l2": math.inf, "stats": TRAIN_STATS_TOL,
+                  "update_disagree": max(1.0 - TRAIN_UPDATE_SHARE, DAMP_UPDATE_FACTOR * update_floor)}
+        rep = ReluDecisions(torch, replay=rec.masks, leaky=True)
+        with rep:
+            cpu = _damp_step_readings(torch, "cpu", model, eps, mode, cx)
+        if not rep.within_reach():
+            fail(f"the card's DampNet {mode} step takes ReLU decisions the CPU's f32 rounding cannot explain: {rep.flips}")
+        got = _readings_apart(card, cpu, floor)
+        own = _readings_apart(card, cpu_own, floor)
+        rec_f = ReluDecisions(torch, leaky=True)
+        with faults[mode], rec_f:
+            faulty_card = _damp_step_readings(torch, dev, model, eps, mode, cx)
+        rep_f = ReluDecisions(torch, replay=rec_f.masks, leaky=True)
+        with rep_f:
+            cpu_f = _damp_step_readings(torch, "cpu", model, eps, mode, cx)
+        faulty = _readings_apart(faulty_card, cpu_f, floor)
+        caught = [k for k, v in bounds.items() if not faulty[k] <= v] + ([] if rep_f.within_reach() else ["ReLU decisions"])
+        print(f"card vs CPU DampNet step (dampnet_full_class, {mode}, 64 px, f32): loss card {card[0]:.7f} CPU "
+              f"{cpu[0]:.7f}; " + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
+              + f"; ReLU decisions: the CPU took the card's ({len(rec.masks)} calls), differing from its own at "
+              f"{sum(n for _, n, _ in rep.flips)} elements, largest |input| / call's largest "
+              f"{max((r for _, _, r in rep.flips), default=0.0):.3e} (limit {RELU_REACH:g}); with its own decisions: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in own.items())
+              + f"; update floor (the CPU's f32 step against f64) {update_floor:.3e}; bounds "
+              + ", ".join(f"{k} {v:.3e}" for k, v in bounds.items())
+              + f"; planted fault ({DAMP_FAULTS[mode]}): " + ", ".join(f"{k} {v:.3e}" for k, v in faulty.items())
+              + f": {'caught by ' + ', '.join(caught) if caught else 'passes'}")
+        if not caught:
+            fail(f"the DampNet {mode} cross-device check does not catch {DAMP_FAULTS[mode]}")
+        bad = [k for k, v in bounds.items() if not got[k] <= v]
+        if bad:
+            fail(f"the card's DampNet {mode} step parts from the CPU's: {bad}")
+
+    # the eval member, the live composition
+    spec_e = EpisodeSpec(5, 5, 3)
+    images = np.random.RandomState(9).randint(0, 256, (5, 8, 36, 36, 3), dtype=np.uint8)
+    to = lambda t, d: {k: to(v, d) for k, v in t.items()} if isinstance(t, dict) else (
+        [to(v, d) for v in t] if isinstance(t, list) else t.to(d))
+    for epochs, scan in ((0, "eager"), (1, "eager"), (0, "fused"), (1, "fused")):
+        tcfg = ee.TransferCfg(fine_tune_epochs=epochs, inner_scan=scan,
+                              opt_state_dtype="float32" if scan == "eager" else "bfloat16")
+        program = ee.make_eval_program(method="dampnet_full_class", bcfg=bcfg, gcfg=None, spec=spec_e, tcfg=tcfg,
+                                       aug_cfg=AugmentCfg(image_size=32), gen_examples=1, dcfg=dcfg)
+        scores = {}
+        for d in ("cpu", dev):
+            models = {"dampnet": (to(feature, d), to(stats, d), to(head, d), to(dstate, d))}
+            base = torch.from_numpy(images).to(d).permute(0, 1, 4, 2, 3)
+            scores[d], _ = program(models, base, torch.Generator().manual_seed(3))
+        diff = float((scores[dev].cpu() - scores["cpu"]).abs().max())
+        agree = bool((scores[dev].cpu().argmax(1) == scores["cpu"].argmax(1)).all())
+        print(f"card vs CPU DampNet eval (dampnet_full_class, 32 px, f32, {scan} inner loop, {epochs} inner epochs): "
+              f"max |d scores| = {diff:.3e}, argmax agree = {agree}")
+        if not agree or (epochs == 0 and not diff <= XDEV_TOL):
+            fail(f"the card's DampNet eval ({scan}) disagrees with the CPU's at {epochs} inner epochs")
+
+
 def write_checkpoints(torch, save_dir):
     """Seeded random checkpoints in the reference .tar layout: baseline@400,
     gnnnet_aug 5-shot@600 and 50-shot@600 (the directories and epochs that
@@ -1430,7 +1600,8 @@ def trace_summary(prof, phases) -> dict:
     """Sums over the raw trace of a profile (``prof.profiler.kineto_results``),
     without building the profiler's Python event tree, which takes minutes
     for an episode of a million events: device busy microseconds (kernels,
-    copies, sets), per kernel name ``(microseconds, calls)``, and per range
+    copies, sets; all of them, and those from the first phase range's start
+    on the device, past what the driver does before its episodes), per kernel name ``(microseconds, calls)``, and per range
     named ``<phase>:<member>`` (``phases``) its host microseconds and the
     device microseconds of the kernels that start inside its span on the
     device's timeline (its device-side annotation), kernels launched from
@@ -1453,19 +1624,20 @@ def trace_summary(prof, phases) -> dict:
             kernels.append((e.start_ns(), e.duration_ns() / 1e3, name))
     spans.sort()
     starts = [sp[0] for sp in spans]
-    device, by_name, busy = {}, {}, 0.0
+    device, by_name, busy, episode = {}, {}, 0.0, 0.0
     for start, us, name in kernels:
         busy += us
+        episode += us if starts and start >= starts[0] else 0.0
         total, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (total + us, calls + 1)
         i = bisect.bisect_right(starts, start) - 1
         if i >= 0 and start < spans[i][1]:
             device[spans[i][2]] = device.get(spans[i][2], 0.0) + us
-    return {"busy_us": busy, "kernels": by_name, "host_us": host, "device_us": device}
+    return {"busy_us": busy, "episode_busy_us": episode, "kernels": by_name, "host_us": host, "device_us": device}
 
 
 def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int, label: str = "5-shot",
-                  scan: bool = True):
+                  scan: bool = True, setup_before: bool = False):
     """One more episode of a path under ``torch.profiler``: the symbols of
     the edge kernel and (``scan``) of the fused scan's kernels must be on the
     device timeline.  Prints where the time goes: each eval phase's host and
@@ -1473,7 +1645,9 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int,
     train/eval_engine.py), the kernels with the most device time, and the
     device's idle share, which is 1 - (device kernel time of the profiled
     episode) / (steady seconds per episode without the profiler; the
-    profiler itself slows the host)."""
+    profiler itself slows the host).  ``setup_before``: the driver works on
+    the device before its first episode (DampNet's source sweep), so the
+    episode's device time starts at the first phase range."""
     from torch.profiler import ProfilerActivity, profile
 
     from mft_tpu_torch.train.eval_engine import PHASES
@@ -1483,16 +1657,23 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int,
     t = trace_summary(prof, PHASES)
     tag = f"profiler ({label})"
     busy_us, kernels = t["busy_us"], t["kernels"]
+    if setup_before:  # the driver's work before its episodes (DampNet's source sweep) is no episode's
+        print(f"{tag}: device time {busy_us / 1e6:.4f} s in all, {(busy_us - t['episode_busy_us']) / 1e6:.4f} s of it "
+              f"before the first phase range (the driver's set-up)")
+        busy_us = t["episode_busy_us"]
     if busy_us == 0:
         fail(f"the profiler recorded no device time ({label}), so it cannot show the edge kernel on the path")
     sum_of = lambda sym: [sum(v) for v in zip(*[kv for k, kv in kernels.items() if sym in k])] or [0.0, 0]
     edge_us, edge_n = sum_of("edge_abs_diff_matmul_kernel")
-    if edge_us == 0:
+    if edge_per_episode and edge_us == 0:
         fail(f"the profiler traced device kernels but not the edge kernel ({label})")
     if edge_n != edge_per_episode:
         fail(f"the profiled {label} episode ran the edge kernel {edge_n} times, the path {edge_per_episode} an episode")
-    print(f"{tag}: edge kernel on the device timeline, {edge_n} launches, {edge_us / 1e3:.4f} ms device time in "
-          f"one episode (W's split passes {sum_of('edge_split_w_kernel')[0] / 1e3:.4f} ms besides)")
+    if edge_per_episode:
+        print(f"{tag}: edge kernel on the device timeline, {edge_n} launches, {edge_us / 1e3:.4f} ms device time in "
+              f"one episode (W's split passes {sum_of('edge_split_w_kernel')[0] / 1e3:.4f} ms besides)")
+    else:
+        print(f"{tag}: no edge kernel on the device timeline, as the path has none")
     scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAllAdam", "bn_fwd_kernel", "bn_bwd_kernel")
     scan_us = {sym: sum_of(sym)[0] for sym in scan_symbols}
     if scan and min(scan_us.values()) == 0:
@@ -1546,7 +1727,14 @@ def phase_training(torch, kernels, save_dir) -> dict:
                               "--episodes_per_epoch", str(TRAIN_EPISODES["train50"]), "--start_epoch", "0",
                               "--stop_epoch", "0"]),
     )
+    damp = common + ["--n_shot", "5", "--n_query", "16", "--start_epoch", "0", "--stop_epoch", "0"]
+    stages += (
+        ("dampnet_full_class", damp + ["--method", "dampnet_full_class", "--train_aug", "--episodes_per_epoch",
+                                       str(TRAIN_EPISODES["dampnet_full_class"])]),
+        ("dampnet", damp + ["--method", "dampnet", "--episodes_per_epoch", str(TRAIN_EPISODES["dampnet"])]),
+    )
     train_counts = {name: 0 for name in kernels.MODULES}
+    stage_counts = {}
     for stage, argv in stages:
         trace = {}
 
@@ -1570,7 +1758,8 @@ def phase_training(torch, kernels, save_dir) -> dict:
             fail(f"training stage {stage}: {n} steps, losses {res.losses}")
         steady = [t for i, t in enumerate(res.seconds) if i not in (0, PROFILED_STEP)]
         step_s = sum(steady) / len(steady)
-        want_edge = 0 if stage == "baseline" else 3 * n
+        # DampNet's GNN takes the plain edge op, as JAX's (DampNetCfg.gnn_cfg passes no use_pallas)
+        want_edge = 0 if stage == "baseline" or stage.startswith("dampnet") else 3 * n
         print(f"training {stage}: {n} steps, losses {[round(v, 4) for v in res.losses]}, seconds per step "
               f"{[round(t, 4) for t in res.seconds]} (first includes warm-up, step {PROFILED_STEP} profiled)")
         print(f"training {stage} steady seconds/step = {step_s:.4f}; peak device memory "
@@ -1580,6 +1769,13 @@ def phase_training(torch, kernels, save_dir) -> dict:
                  f"(three a step)")
         if counts["fused_inner_scan"] != 0:
             fail(f"training {stage} launched the fused scan, which the training path does not use")
+        stage_counts[stage] = counts
+        if stage == "dampnet":
+            with open(os.path.join(res.ckpt_dir, "train_log.jsonl")) as f:
+                modes = [json.loads(line)["mode"] for line in f if '"mode"' in line]
+            print(f"training dampnet modes {modes}")
+            if not {"plain", "corrupt", "recover"} <= set(modes):
+                fail(f"the prototype DampNet run did not take every training mode: {modes}")
         if stage in ("episodic", "fine_tune"):
             for name, v in counts.items():
                 train_counts[name] += v
@@ -1596,7 +1792,7 @@ def phase_training(torch, kernels, save_dir) -> dict:
                       f"{e.device_time_total / 1e3:.3f} ms")
         bwd = [e for e in events if e.device_type == DeviceType.CPU and e.key == "edge_abs_diff_matmul:backward"]
         bwd_us = sum(e.device_time_total for e in bwd)
-        if stage != "baseline" and fwd_us == 0:
+        if want_edge and fwd_us == 0:
             fail(f"the profiler traced the {stage} step but not the edge kernel")
         print(f"training {stage} profiled step: device time {busy_us / 1e3:.3f} ms, idle share "
               f"{1.0 - busy_us / 1e6 / step_s:.4f} (against the steady {step_s:.4f} s a step); edge kernel forward "
@@ -1605,7 +1801,40 @@ def phase_training(torch, kernels, save_dir) -> dict:
         for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:5]:
             print(f"training {stage} kernel {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:100]}")
         mark(f"training {stage}")
-    return train_counts, counts
+    return train_counts, stage_counts
+
+
+def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
+    """The DampNet eval from the checkpoint the training phase wrote
+    (``--method dampnet_full_class --train_aug --inner_scan fused``, full
+    width, its source prototypes swept from the synthetic base set first):
+    2 episodes, launch counts set to 0 before and read after (the scan once
+    an episode, the edge kernel never: DampNet's GNN takes the plain edge
+    op), one profiled episode; then one episode each of ``--unsupervised
+    synthetic`` and ``--dampnet_eval nofinetune`` (neither adapts: no
+    scan)."""
+    damp = ["--device", "cuda", "--method", "dampnet_full_class", "--train_aug", "--inner_scan", "fused",
+            "--dataset", "synthetic", "--test_dataset", "synthetic", "--model", "ResNet10", "--image_size", "224",
+            "--n_shot", "5", "--gen_examples", "17", "--fine_tune_epoch", "5", "--paths_json", paths_json]
+    kernels.reset_launch_counts()
+    steady = drive(torch, finetune, "DampNet eval (dampnet_full_class --inner_scan fused)", damp, 2)
+    counts = kernels.launch_counts()
+    print(f"DampNet eval kernel launches: {counts} (the scan once an episode; the edge kernel 0: DampNet's GNN "
+          f"takes the plain edge op)")
+    if counts["fused_inner_scan"] != 2 or counts["edge_abs_diff_matmul"] != 0:
+        fail(f"the DampNet eval launched {counts}, not the scan once an episode and the edge kernel never")
+    for row in rows:
+        row["launches_dampnet"] = counts[row["name"]]
+    phase_profile(torch, finetune, damp, steady, 0, label="DampNet", setup_before=True)
+    mark("DampNet eval and profile")
+    for label, extra in (("unsupervised", ["--unsupervised", "synthetic"]), ("nofinetune", ["--dampnet_eval",
+                                                                                          "nofinetune"])):
+        kernels.reset_launch_counts()
+        drive(torch, finetune, f"DampNet eval ({label})", damp + extra, 1)
+        counts = kernels.launch_counts()
+        print(f"DampNet eval ({label}) kernel launches: {counts}")
+        if any(counts.values()):
+            fail(f"the DampNet {label} eval adapts nothing, yet launched {counts}")
 
 
 def main():
@@ -1660,6 +1889,8 @@ def main():
     mark("eval card vs CPU")
     phase_train_cross_device(torch, dev)
     mark("training steps card vs CPU")
+    phase_dampnet_cross_device(torch, dev)
+    mark("DampNet step and eval card vs CPU")
 
     # 5. the main path at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
@@ -1717,20 +1948,25 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
         with open(os.path.join(save_dir, "paths.json"), "w") as f:
             json.dump({"save_dir": save_dir}, f)
-        train_counts, train50_counts = phase_training(torch, kernels, save_dir)
-        print(f"training path kernel launches (episodic + fine-tune stages): {train_counts}; train_50: {train50_counts}")
+        train_counts, stage_counts = phase_training(torch, kernels, save_dir)
+        print(f"training path kernel launches (episodic + fine-tune stages): {train_counts}; train_50: "
+              f"{stage_counts['train50']}; dampnet_full_class: {stage_counts['dampnet_full_class']}; dampnet: "
+              f"{stage_counts['dampnet']}")
         for row in rows:
             row["launches_train"] = train_counts[row["name"]]
-            row["launches_train50"] = train50_counts[row["name"]]
+            row["launches_train50"] = stage_counts["train50"][row["name"]]
         # the last --dataset / --paths_json wins: the trained checkpoints' directory
+        pj_trained = os.path.join(save_dir, "paths.json")
         drive(torch, finetune, "eval from the trained checkpoints", argv + ["--dataset", "synthetic", "--paths_json",
-                                                                     os.path.join(save_dir, "paths.json")], 1)
-    mark("training stages")
+                                                                     pj_trained], 1)
+        mark("training stages")
+        phase_dampnet_eval(torch, kernels, finetune, rows, pj_trained)
+    mark("DampNet eval")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
-             "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50"]
+             "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet"]
     # keys of a path that a kernel off that path (or a number this run does not measure) leaves null
     print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

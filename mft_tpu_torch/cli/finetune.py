@@ -11,12 +11,22 @@ At ``--n_shot >= 50`` the GnnNet head is the compressed 50-shot variant
 reference's ``<epoch>.tar`` state dicts (what ``mft_tpu.cli.export_ckpt``
 and ``mft_tpu_torch.cli.train`` write).
 
+``--method dampnet|dampnet_full|dampnet_full_class`` reads the method's own
+checkpoint with its ``damp_state``; when that holds no source prototypes
+(``initialized`` False, as in a file the reference wrote) they are computed
+first from a sweep of ``--dataset`` through the backbone (finetune_50.py:
+591-622, ``--sweep_images`` subsamples it).  ``--dampnet_eval`` picks the
+composition, ``--unsupervised <dataset>`` the recovery from that dataset's
+feature statistics.
+
 Run: ``python -m mft_tpu_torch.cli.finetune --method all --use_pallas
 --test_dataset CropDisease --n_shot 5 --fine_tune_epoch 5 --gen_examples 17``
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
+import json
 import os
 import sys
 import time
@@ -30,9 +40,11 @@ from mft_tpu_torch import resolve_device
 from mft_tpu_torch.convert import from_state_dict, load_tar
 from mft_tpu_torch.core.episode import EpisodeSpec
 from mft_tpu_torch.data import registry
-from mft_tpu_torch.data.pipeline import EpisodeStream, ReplayEpisodeStream
+from mft_tpu_torch.data.pipeline import WORKERS, EpisodeStream, ReplayEpisodeStream, decode_image
+from mft_tpu_torch.methods import dampnet as dn
 from mft_tpu_torch.methods import gnnnet as gn
 from mft_tpu_torch.models import backbone as bb
+from mft_tpu_torch.ops.augment import center_batch
 from mft_tpu_torch.train import eval_engine as ee
 from mft_tpu_torch.utils import checkpoint as ckpt
 
@@ -55,15 +67,27 @@ def _load(path, bcfg, device, need_head: bool):
     return params, stats
 
 
-def build_models(a, paths, bcfg, device):
+def build_models(a, paths, bcfg, device, dcfg=None):
     """Resolve and load the checkpoints the method needs
     (finetune.py:439-550).  ``--method all`` keeps the reference's quirks:
     the baseline is pinned at epoch 400 (latest with ``--save_iter -1``) in a
     train_aug-gated dir; the GNN at epoch 600 with ``_aug`` always appended
-    (finetune.py:121-137 of the JAX driver).  ``gnnnet``, ``gnnnet_maml`` and
-    ``protonet`` read their own method's directory at ``--save_iter`` (the
-    best file with -1); a ProtoNet checkpoint is a backbone alone."""
+    (finetune.py:121-137 of the JAX driver).  ``gnnnet``, ``gnnnet_maml``,
+    ``protonet`` and the DampNet methods (``dcfg``) read their own method's
+    directory at ``--save_iter`` (the best file with -1); a ProtoNet
+    checkpoint is a backbone alone."""
     models = {}
+    if dcfg is not None:
+        d = cfg_mod.checkpoint_dir(paths, a.dataset, a.model, a.method, train_aug=a.train_aug, n_way=a.train_n_way,
+                                   n_shot=a.n_shot)
+        path = ckpt.get_assigned_file(d, a.save_iter) if a.save_iter != -1 else ckpt.get_best_file(d)
+        if path is None or not os.path.exists(path):
+            raise FileNotFoundError(f"checkpoint {path!r} not found")
+        _, p, s, _, dstate = ckpt.load_checkpoint(path, bcfg, None, device=device,
+                                                  damp_template=dn.fresh_state(dcfg, device=device))
+        if "W_R" not in p or p["W_R"].shape[0] != dcfg.ntn_dim:
+            raise ValueError(f"checkpoint {path!r} holds no {a.method} recovery network (NTN width {dcfg.ntn_dim})")
+        models["dampnet"] = (p["feature"], s, {k: v for k, v in p.items() if k != "feature"}, dstate)
     if a.method in ("all", "baseline"):
         d = cfg_mod.checkpoint_dir(paths, a.dataset, a.model, "baseline", train_aug=a.train_aug)
         path = ckpt.get_assigned_file(d, 400) if a.save_iter != -1 else ckpt.get_resume_file(d)
@@ -84,12 +108,68 @@ def build_models(a, paths, bcfg, device):
     return models
 
 
-def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device) -> EvalResult:
+def sweep_features(a, paths, dataset_name: str, params, stats, bcfg, device, *, n_images: int = -1,
+                   batch: int = 64, order=None) -> torch.Tensor:
+    """Center views of ``dataset_name`` through the backbone with
+    batch-statistics BN -> f32 features ``[N, feat]``, in batches of 64 (the
+    reference's sweep batch, finetune_50.py:592; the ragged last batch keeps
+    its size, as the reference's loader's does, since padding would change
+    its BN statistics).  ``n_images`` > 0 takes that many evenly spaced
+    images; ``order`` (paths relative to the dataset's root) sweeps exactly
+    those, in that order: the replay of a recorded ``sweep_order``."""
+    if order is not None:
+        root = paths.as_dict()[dataset_name]
+        items = [os.path.join(root, p) for p in order]
+        idx = np.arange(len(items), dtype=np.int64)
+    else:
+        manifest = registry.build_manifest(registry.get(dataset_name), paths.as_dict())
+        items = manifest.items
+        cap = len(items) if n_images is None or n_images < 0 else min(n_images, len(items))
+        idx = np.linspace(0, len(items) - 1, cap).astype(np.int64)
+    out = []
+    with cf.ThreadPoolExecutor(WORKERS) as pool, torch.no_grad():
+        for start in range(0, len(idx), batch):
+            imgs = np.stack(list(pool.map(lambda i: decode_image(items[i], a.base_size), idx[start : start + batch])))
+            x = center_batch(torch.from_numpy(imgs).to(device).permute(0, 3, 1, 2), a.image_size)
+            out.append(bb.apply_backbone(params, stats, x, cfg=bcfg, train=True)[0].float())
+    return torch.cat(out)
+
+
+def compute_unsup_stats(a, paths, params, stats, bcfg, device, *, n_images: int = -1):
+    """Feature mean and unbiased std of the ``--unsupervised`` dataset: the
+    external statistics of DampNet's ``unsup`` recovery (set_forward_unsup,
+    dampnet_full.py:298-348)."""
+    feats = sweep_features(a, paths, a.unsupervised, params, stats, bcfg, device, n_images=n_images)
+    return feats.mean(dim=0), feats.std(dim=0, correction=1)
+
+
+def prepare_dampnet(a, paths, models, bcfg, device):
+    """The source prototypes when the checkpoint holds none (a sweep of
+    ``--dataset``, the recorded ``sweep_order`` of ``--episode_manifest``
+    when it has one), and the ``--unsupervised`` statistics."""
+    params, stats, dparams, dstate = models["dampnet"]
+    if not bool(dstate["initialized"]):
+        order = None
+        if a.episode_manifest:
+            with open(a.episode_manifest) as f:
+                raw = json.load(f)
+            order = raw.get("sweep_order") if isinstance(raw, dict) else None
+            if order:
+                print(f"replaying recorded sweep order ({len(order)} images)")
+        feats = sweep_features(a, paths, a.dataset, params, stats, bcfg, device, n_images=a.sweep_images, order=order)
+        models["dampnet"] = (params, stats, dparams, dn.update_prototypes(dstate, feats))
+        print(f"dampnet source prototypes computed from {a.dataset}")
+    if a.unsupervised:
+        models["unsup_stats"] = compute_unsup_stats(a, paths, params, stats, bcfg, device, n_images=a.sweep_images)
+        print(f"unsup recovery stats from {a.unsupervised}")
+
+
+def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=None) -> EvalResult:
     """The episode loop; prints each episode's accuracy."""
     tcfg = ee.TransferCfg(fine_tune_epochs=a.fine_tune_epoch, inner_param_dtype=a.inner_param_dtype,
                            inner_scan=a.inner_scan, bn_mode=a.bn_mode)
     program = ee.make_eval_program(method=a.method, bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg,
-                                   gen_examples=a.gen_examples)
+                                   gen_examples=a.gen_examples, dcfg=dcfg, dampnet_eval=a.dampnet_eval)
     if a.episode_manifest:
         stream = ReplayEpisodeStream.from_json(a.episode_manifest, spec, base_size=a.base_size,
                                                root=a.episode_manifest_root)
@@ -114,13 +194,14 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device) -> EvalR
 
 def _refuse_unported(a):
     unported = {
-        f"--method {a.method} (ROADMAP Queue 1 item 16, DampNet)": a.method.startswith("dampnet"),
-        f"--method {a.method}": a.method not in ee.METHODS and not a.method.startswith("dampnet"),
+        f"--method {a.method}": a.method not in ee.METHODS,
         f"--model {a.model} (ROADMAP Queue 1 item 18, the other backbones)": a.model not in bb.MODEL_REGISTRY,
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)} (mft_tpu.cli.finetune has them)")
+    if not a.method.startswith("dampnet") and (a.unsupervised or a.dampnet_eval != "finetune"):
+        raise SystemExit("--unsupervised and --dampnet_eval apply to --method dampnet|dampnet_full|dampnet_full_class")
 
 
 def main(argv=None) -> EvalResult:
@@ -140,9 +221,12 @@ def main(argv=None) -> EvalResult:
     entry = registry.get(a.test_dataset)
     print(f"Loading {a.test_dataset}")
     manifest = registry.build_manifest(entry, paths.as_dict(), split="novel")
-    models = build_models(a, paths, bcfg, device)
+    dcfg = dn.method_cfg(a.method, bcfg.feat_dim, a.test_n_way, a.n_shot) if a.method.startswith("dampnet") else None
+    models = build_models(a, paths, bcfg, device, dcfg)
+    if dcfg is not None:
+        prepare_dampnet(a, paths, models, bcfg, device)
     res = evaluate(a, models, manifest, aug_cfg=entry.eval_aug._replace(image_size=a.image_size), bcfg=bcfg,
-                   gcfg=gcfg, spec=spec, device=device)
+                   gcfg=gcfg, spec=spec, device=device, dcfg=dcfg)
     print(a.test_dataset)
     print("%d Test Acc = %4.2f%% +- %4.2f%%" % (a.iter_num, res.mean, res.ci95))
     print(f"seconds/episode = {np.mean(res.seconds):.3f}")

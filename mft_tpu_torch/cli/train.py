@@ -9,15 +9,19 @@ Stages (reference README commands):
   (train.py:112-144, 27-42);
 * ``--fine_tune``: the meta fine-tuning stage, FO-MAML on the last backbone
   block per episode (train.py:49-58), resuming from the latest checkpoint
-  with ``--start_epoch``.
+  with ``--start_epoch``;
+* ``--method dampnet_full_class|dampnet_full|dampnet``: DampNet's episodic
+  training (train_loop_full, dampnet_full_class.py:425-469; the prototype
+  variant, methods/dampnet.py), its mode schedule, prototype refresh and
+  rolling store, with ``damp_state`` in every checkpoint.
 
 Episodes and batches are decoded once on the host; augmentation runs on the
 device from a generator seeded by ``--seed``.  Checkpoints are the
 reference's ``<epoch>.tar`` (``utils/checkpoint.py``), which the port's eval
 reads.  At ``--n_shot >= 50`` the GnnNet head is the compressed 50-shot
 variant (reference train_50.py, gnnnet_copy.py; ``cli/train_50.py`` pins
-its defaults).  Not ported: DampNet (ROADMAP Queue 1 item 16) and
-backbones other than ResNet10 (item 18).
+its defaults).  Not ported: backbones other than ResNet10 (ROADMAP Queue 1
+item 18).
 
 Run: ``python -m mft_tpu_torch.cli.train --method gnnnet --dataset
 miniImageNet --n_shot 5 --train_aug --use_pallas --stop_epoch 400``
@@ -40,6 +44,7 @@ from mft_tpu_torch import resolve_device
 from mft_tpu_torch.core.episode import EpisodeSpec
 from mft_tpu_torch.data import registry
 from mft_tpu_torch.data.pipeline import BatchStream, EpisodeStream, ReplayBatchStream, ReplayEpisodeStream
+from mft_tpu_torch.methods import dampnet as dn
 from mft_tpu_torch.methods import gnnnet as gn
 from mft_tpu_torch.methods.baseline import init_classifier
 from mft_tpu_torch.models import backbone as bb
@@ -66,9 +71,10 @@ def _no_observer(stage: str, epoch: int, step: int):
 def build_model(gen: torch.Generator, method: str, model_name: str, n_way: int, n_support: int, num_classes: int,
                 *, use_pallas: bool = False, device="cpu"):
     """``(bcfg, gcfg, params, stats)``, drawn from ``gen``: the backbone,
-    then the head (the baseline's classifier or GnnNet's fc + GNN, the
-    pair-averaging 50-shot variant at ``n_support >= 50``; ProtoNet has
-    none)."""
+    then the head (the baseline's classifier, GnnNet's fc + GNN with the
+    pair-averaging 50-shot variant at ``n_support >= 50``, or DampNet's fc +
+    GNN + recovery network, ``gcfg`` then its ``DampNetCfg``; ProtoNet has
+    none).  A DampNet model's state starts as ``dn.fresh_state(gcfg)``."""
     bcfg = bb.MODEL_REGISTRY[model_name]()
     feature, stats = bb.init_backbone(gen, bcfg, device=device)
     gcfg = None
@@ -76,6 +82,10 @@ def build_model(gen: torch.Generator, method: str, model_name: str, n_way: int, 
         params = {"feature": feature, "classifier": init_classifier(gen, bcfg.feat_dim, num_classes, device=device)}
     elif method == "protonet":
         params = {"feature": feature}
+    elif method.startswith("dampnet"):
+        gcfg = dn.method_cfg(method, bcfg.feat_dim, n_way, n_support)
+        head, _ = dn.init_dampnet(gen, gcfg, device=device)
+        params = {"feature": feature, **head}
     else:
         gcfg = gn.GnnNetCfg(feat_dim=bcfg.feat_dim, n_way=n_way, n_support=n_support,
                             support_compress=2 if n_support >= 50 else 1, use_pallas=use_pallas)
@@ -83,11 +93,17 @@ def build_model(gen: torch.Generator, method: str, model_name: str, n_way: int, 
     return bcfg, gcfg, params, stats
 
 
+#: the training methods of the port
+METHODS = ("baseline", "gnnnet", "protonet", "dampnet", "dampnet_full", "dampnet_full_class")
+
+
 def _refuse_unported(a):
+    damp = a.method.startswith("dampnet")
     unported = {
-        f"--method {a.method} (ROADMAP Queue 1 item 16, DampNet)": a.method.startswith("dampnet"),
-        f"--method {a.method}": a.method not in ("baseline", "gnnnet", "protonet") and not a.method.startswith("dampnet"),
+        f"--method {a.method}": a.method not in METHODS,
         f"--model {a.model} (ROADMAP Queue 1 item 18, the other backbones)": a.model not in bb.MODEL_REGISTRY,
+        # the JAX driver's DampNet loop samples its episodes and has no FO-MAML stage
+        f"--method {a.method} with --fine_tune or --episode_manifest": damp and (a.fine_tune or bool(a.episode_manifest)),
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
@@ -96,8 +112,8 @@ def _refuse_unported(a):
 
 def main(argv=None, *, observe_step=_no_observer) -> TrainResult:
     """``observe_step(stage, epoch, step)`` returns a context manager that
-    encloses each training step (``stage`` is ``baseline``, ``episodic`` or
-    ``fine_tune``); a caller can profile one step with it."""
+    encloses each training step (``stage`` is ``baseline``, ``episodic``,
+    ``fine_tune`` or ``dampnet``); a caller can profile one step with it."""
     a = cfg_mod.parse_train_args(argv)
     _refuse_unported(a)
     device = resolve_device(a.device)
@@ -120,6 +136,7 @@ def main(argv=None, *, observe_step=_no_observer) -> TrainResult:
     bcfg = bcfg._replace(compute_dtype=a.dtype)
     tx = opt.torch_adam(1e-3)  # Adam(model.parameters()) defaults (train.py:27-28)
     opt_state = tx.init(params)
+    dstate = dn.fresh_state(gcfg, device=device) if a.method.startswith("dampnet") else None
 
     ckpt_dir = cfg_mod.checkpoint_dir(paths, a.dataset, a.model, a.method, train_aug=a.train_aug,
                                       n_way=a.train_n_way, n_shot=a.n_shot)
@@ -128,20 +145,26 @@ def main(argv=None, *, observe_step=_no_observer) -> TrainResult:
     if start_epoch != 0:
         resume = ckpt.get_resume_file(ckpt_dir)
         if resume:
-            epoch, params, stats, opt_state = ckpt.load_checkpoint(resume, bcfg, opt_state, device=device)
+            loaded = ckpt.load_checkpoint(resume, bcfg, opt_state, device=device, damp_template=dstate)
+            epoch, params, stats, opt_state = loaded[:4]
+            if dstate is not None:
+                dstate = loaded[4]  # the prototypes and the store resume too
             start_epoch = epoch + 1
             print(f"resumed from {resume} at epoch {start_epoch}")
 
-    run = run_baseline if a.method == "baseline" else run_episodic
     result = TrainResult(ckpt_dir, [], [])
-    run(a, manifest, aug_cfg, bcfg, gcfg, spec, params, stats, tx, opt_state, logger, start_epoch, device, result,
-        observe_step)
+    args = (a, manifest, aug_cfg, bcfg, gcfg, spec, params, stats, tx, opt_state, logger, start_epoch, device, result,
+            observe_step)
+    if dstate is not None:
+        run_dampnet(*args, dstate)
+    else:
+        (run_baseline if a.method == "baseline" else run_episodic)(*args)
     return result
 
 
-def _save(a, epoch, ckpt_dir, params, stats, opt_state):
+def _save(a, epoch, ckpt_dir, params, stats, opt_state, damp_state=None):
     if epoch % a.save_freq == 0 or epoch == a.stop_epoch:
-        ckpt.save_checkpoint(ckpt_dir, epoch, params, stats, opt_state)
+        ckpt.save_checkpoint(ckpt_dir, epoch, params, stats, opt_state, damp_state)
 
 
 def _load_manifest(a, key: str):
@@ -251,6 +274,62 @@ def run_episodic(a, manifest, aug_cfg, bcfg, gcfg, spec, params, stats, tx, opt_
         # input against compute: data_s >> step_s means the run waits on the host's decode
         logger.log_train(epoch, n_steps, n_steps, meter.avg, data_s=round(t_data, 3), step_s=round(t_step, 3))
         _save(a, epoch, result.ckpt_dir, params, stats, opt_state)
+
+
+def run_dampnet(a, manifest, aug_cfg, bcfg, dcfg, spec, params, stats, tx, opt_state, logger, start_epoch, device,
+                result: TrainResult, observe_step, dstate):
+    """DampNet training (train_loop_full, dampnet_full_class.py:425-469).
+    The full family: 'plain' until the prototypes exist, then corrupt and
+    recover by call parity; each epoch's clean support features join a
+    5-epoch window from which the prototypes are refreshed from epoch 206 on
+    (:430,456-462).  The prototype variant: its schedule by ``count``, and
+    each step's support banks rotated into the rolling store (dampnet.py:
+    54,95-138).  The corruption draws come from a generator seeded by
+    ``--seed``."""
+    e_batch = a.episode_batch
+    dt = pipeline_dtype(bcfg.compute_dtype)
+    gen_aug = torch.Generator().manual_seed(a.seed)
+    gen_corrupt = torch.Generator().manual_seed(a.seed + 2)
+    proto_variant = dcfg.variant == "prototype"
+    proto_start = 206  # dampnet_full_class.py:430
+    window = []  # the support features of the last 5 epochs
+    step_index = 0
+    n_steps = max(1, a.episodes_per_epoch // e_batch)
+    for epoch in range(start_epoch, a.stop_epoch + 1):
+        stream = EpisodeStream(manifest, spec, a.episodes_per_epoch, base_size=a.base_size, seed=a.seed + epoch)
+        meter = AverageMeter()
+        it = iter(stream)
+        epoch_bank = []
+        for i in range(n_steps):
+            eps = np.stack([next(it)[0] for _ in range(e_batch)])
+            if proto_variant:
+                mode = dn.prototype_training_mode(int(dstate["count"]), e_batch)
+            else:
+                mode = dn.training_mode(step_index, bool(dstate["initialized"]))
+            t1 = time.perf_counter()
+            with observe_step("dampnet", epoch, i):
+                base = torch.from_numpy(eps).to(device).permute(0, 1, 2, 5, 3, 4)  # [E, way, shot, 3, H, W]
+                x = (augment_batch(gen_aug, base, aug_cfg, dtype=dt) if a.train_aug
+                     else center_batch(base, a.image_size, dtype=dt))
+                params, stats, opt_state, m = steps.dampnet_train_step(
+                    params, stats, opt_state, dstate, x, gen_corrupt, mode=mode, bcfg=bcfg, dcfg=dcfg, spec=spec,
+                    tx=tx)
+                if proto_variant:
+                    dstate = dn.update_prototype_store(dstate, m["support_bank"])
+                loss = float(m["loss"])  # waits for the step
+            result.seconds.append(time.perf_counter() - t1)
+            result.losses.append(loss)
+            if not proto_variant:
+                epoch_bank.append(m["support_bank"].reshape(-1, dcfg.feat_dim))
+            step_index += e_batch
+            meter.update(loss)
+            logger.log_train(epoch, i, n_steps, meter.avg, mode=mode)
+        it.close()
+        if not proto_variant:
+            window = (window + [torch.cat(epoch_bank)])[-5:]
+            if epoch >= proto_start:
+                dstate = dn.update_prototypes(dstate, torch.cat(window))
+        _save(a, epoch, result.ckpt_dir, params, stats, opt_state, dstate)
 
 
 if __name__ == "__main__":

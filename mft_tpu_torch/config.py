@@ -4,7 +4,8 @@ those of the JAX drivers that the port implements, plus ``--device``).
 
 Only flags that the port acts on are defined, so argparse rejects the JAX
 drivers' others (eval: ``--freeze_backbone``, ``--eval_batch``; both:
-``--episode_cache``, ``--trace_dir`` and the dampnet-only flags).
+``--episode_cache``, ``--trace_dir``; training: the eval-only DampNet flags
+``--dampnet_eval``, ``--sweep_images`` and ``--unsupervised``).
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ def parse_finetune_args(argv=None):
     ap.add_argument("--dataset", default="miniImageNet", help="training base dataset (checkpoint dir)")
     ap.add_argument("--test_dataset", default="", help="cross-domain test dataset")
     ap.add_argument("--model", default="ResNet10", help="backbone architecture")
-    ap.add_argument("--method", default="baseline", help="all | gnnnet | gnnnet_maml | baseline | protonet")
+    ap.add_argument("--method", default="baseline",
+                    help="all | gnnnet | gnnnet_maml | baseline | protonet | dampnet | dampnet_full | dampnet_full_class")
     ap.add_argument("--train_n_way", default=5, type=int)
     ap.add_argument("--test_n_way", default=5, type=int)
     ap.add_argument("--n_shot", default=5, type=int)
@@ -103,6 +105,14 @@ def parse_finetune_args(argv=None):
                     help="JSON of recorded episodes ({'episodes': [...]}: n_way lists of n_shot + n_query paths) to "
                          "replay instead of sampling; --iter_num becomes its length")
     ap.add_argument("--episode_manifest_root", default=None, help="base directory of the manifest's relative paths")
+    ap.add_argument("--dampnet_eval", default="finetune", choices=["finetune", "nofinetune"],
+                    help="DampNet's eval: 'finetune' adapts the last block, then scores with the domain-shift "
+                         "recovery (finetune_50.py:589-687); 'nofinetune' scores the frozen backbone's features and "
+                         "fuses the linear probe (finetune.py:331-417)")
+    ap.add_argument("--sweep_images", default=-1, type=int,
+                    help="images of DampNet's prototype and --unsupervised sweeps; -1 = the whole dataset")
+    ap.add_argument("--unsupervised", default="",
+                    help="DampNet: recover from this unlabeled dataset's feature statistics (set_forward_unsup)")
     a = ap.parse_args(argv)
     if a.base_size <= 0:
         a.base_size = int(a.image_size * 1.15)
@@ -117,7 +127,8 @@ def parse_train_args(argv=None):
     ap.add_argument("--device", default="cuda", help="torch device; 'cuda' raises when no card is present")
     ap.add_argument("--dataset", default="miniImageNet", help="training base dataset")
     ap.add_argument("--model", default="ResNet10", help="backbone architecture")
-    ap.add_argument("--method", default="baseline", help="baseline | gnnnet | protonet")
+    ap.add_argument("--method", default="baseline",
+                    help="baseline | gnnnet | protonet | dampnet | dampnet_full | dampnet_full_class")
     ap.add_argument("--train_n_way", default=5, type=int)
     ap.add_argument("--test_n_way", default=5, type=int)
     ap.add_argument("--n_shot", default=5, type=int)

@@ -4,7 +4,9 @@ reference's ``.tar`` state dicts.
 * :func:`from_jax` maps JAX trees held as numpy arrays (NHWC/HWIO, linear
   ``w [in, out]``) onto the port's trees: HWIO conv weights -> OIHW, ``[F, C]``
   linear and 1x1-conv matrices -> ``[C, F]``, BN scale/bias/mean/var as they
-  are.  :func:`to_jax` is its inverse; :func:`adam_from_jax` /
+  are; DampNet's Bilinear weights ``[out, f, f]`` as they are.  A second tree
+  (the running stats, or DampNet's ``damp_state``) maps leaf by leaf, dtypes
+  kept (``initialized`` bool, ``count`` int32).  :func:`to_jax` is its inverse; :func:`adam_from_jax` /
   :func:`adam_to_jax` carry the training driver's Adam state the same way.
 * :func:`flat_from_jax` / :func:`flat_to_jax` carry the fused inner scan's
   flat parameter dict (``kernels/fused_inner_scan.py`` ``PKEYS``) across.  The
@@ -12,9 +14,12 @@ reference's ``.tar`` state dicts.
   ``[kh*kw*ci, co]``, BN vectors ``[1, C]``), so only the container changes.
 * :func:`from_state_dict` / :func:`to_state_dict` map the reference's
   ``model.state_dict()`` key layout (``feature.trunk.*``, ``fc.*``,
-  ``gnn.*``, ``classifier.*``; the mapping of
+  ``gnn.*``, ``classifier.*``, DampNet's ``W_R``, ``V_R``, ``W_R_std``,
+  ``V_R_std``, ``layer{1,2,3}[_add]``; the mapping of
   ``mft_tpu/utils/torch_import.py``, kept here as a copy) for ResNet10 and
-  the GnnNet head; :func:`load_tar` / :func:`save_tar` read and write the
+  the heads; :func:`heads_from_state_dict` maps a state dict without a
+  backbone.  DampNet's prototypes and stores are not in a reference state
+  dict (plain attributes there): ``utils/checkpoint.py`` keeps them beside it; :func:`load_tar` / :func:`save_tar` read and write the
   ``{'epoch', 'state'}`` files that the reference's train.py and
   ``mft_tpu.cli.export_ckpt`` write.
 """
@@ -27,6 +32,11 @@ import numpy as np
 import torch
 
 from mft_tpu_torch.models.backbone import ResNetCfg
+
+#: DampNet's recovery modules in the reference's state dict (methods/dampnet.py:32-45,
+#: dampnet_full_class.py:33-46)
+DAMPNET_MODULES = ("W_R", "V_R", "W_R_std", "V_R_std", "layer1", "layer2", "layer3", "layer1_add", "layer2_add",
+                   "layer3_add")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -185,7 +195,18 @@ def from_state_dict(sd: Dict[str, torch.Tensor], cfg: ResNetCfg, *, device="cpu"
             idx += 1
         feature["stages"].append(sp)
         stats["stages"].append(ss)
-    params = {"feature": feature}
+    params = {"feature": feature, **_heads(r)}
+    _check_consumed(r, strict)
+    return params, stats
+
+
+def _heads(r) -> dict:
+    """The heads a state dict holds: GnnNet's ``fc``/``gnn``, the baseline's
+    ``classifier``, DampNet's recovery network (``W_R``, ``V_R``,
+    ``W_R_std``, ``V_R_std``, ``layer{1,2,3}[_add]``; the Bilinear weight
+    ``[out, in1, in2]`` as it is; every variant has these names,
+    mft_tpu/utils/torch_import.py:219-230)."""
+    params = {}
     if "fc.0.weight" in r:
         params["fc"] = {"linear": _lin(r, "fc.0"), "bn": _bn(r, "fc.1")}
         gnn, i = {"layers": []}, 0
@@ -198,10 +219,26 @@ def from_state_dict(sd: Dict[str, torch.Tensor], cfg: ResNetCfg, *, device="cpu"
         params["gnn"] = gnn
     if "classifier.weight" in r:
         params["classifier"] = _lin(r, "classifier")
+    if "W_R.weight" in r:
+        for name in DAMPNET_MODULES:
+            params[name] = r[f"{name}.weight"] if name.startswith("W_R") else _lin(r, name)
+    return params
+
+
+def _check_consumed(r, strict: bool):
     left = r.unconsumed()
     if left and strict:
         raise ValueError(f"{len(left)} checkpoint tensors were not mapped (first 10: {left[:10]}); wrong --model?")
-    return params, stats
+
+
+def heads_from_state_dict(sd: Dict[str, torch.Tensor], *, device="cpu", strict: bool = True,
+                          dtype=torch.float32) -> dict:
+    """The heads of a state dict without a backbone (``fc.*``, ``gnn.*``,
+    ``classifier.*``, DampNet's modules), as :func:`from_state_dict` maps them."""
+    r = _Reader(sd, device, dtype)
+    params = _heads(r)
+    _check_consumed(r, strict)
+    return params
 
 
 def _put_lin(out, pre, p):
@@ -224,23 +261,25 @@ def _put_bn(out, pre, pair, run=None):
 
 
 def to_state_dict(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
-    """Inverse of :func:`from_state_dict` (CPU tensors)."""
+    """Inverse of :func:`from_state_dict` (CPU tensors); without
+    ``params["feature"]``, the inverse of :func:`heads_from_state_dict`."""
     out: Dict[str, torch.Tensor] = {}
-    feat = params["feature"]
-    out["feature.trunk.0.weight"] = feat["stem_conv"]
-    _put_bn(out, "feature.trunk.1", feat["stem_bn"], stats["stem_bn"])
-    idx = 4
-    for sp, ss in zip(feat["stages"], stats["stages"]):
-        for blk, bs in zip(sp, ss):
-            pre = f"feature.trunk.{idx}"
-            out[f"{pre}.C1.weight"] = blk["conv1"]
-            _put_bn(out, f"{pre}.BN1", blk["bn1"], bs["bn1"])
-            out[f"{pre}.C2.weight"] = blk["conv2"]
-            _put_bn(out, f"{pre}.BN2", blk["bn2"], bs["bn2"])
-            if "conv_sc" in blk:
-                out[f"{pre}.shortcut.weight"] = blk["conv_sc"]
-                _put_bn(out, f"{pre}.BNshortcut", blk["bn_sc"], bs["bn_sc"])
-            idx += 1
+    if "feature" in params:
+        feat = params["feature"]
+        out["feature.trunk.0.weight"] = feat["stem_conv"]
+        _put_bn(out, "feature.trunk.1", feat["stem_bn"], stats["stem_bn"])
+        idx = 4
+        for sp, ss in zip(feat["stages"], stats["stages"]):
+            for blk, bs in zip(sp, ss):
+                pre = f"feature.trunk.{idx}"
+                out[f"{pre}.C1.weight"] = blk["conv1"]
+                _put_bn(out, f"{pre}.BN1", blk["bn1"], bs["bn1"])
+                out[f"{pre}.C2.weight"] = blk["conv2"]
+                _put_bn(out, f"{pre}.BN2", blk["bn2"], bs["bn2"])
+                if "conv_sc" in blk:
+                    out[f"{pre}.shortcut.weight"] = blk["conv_sc"]
+                    _put_bn(out, f"{pre}.BNshortcut", blk["bn_sc"], bs["bn_sc"])
+                idx += 1
     if "fc" in params:
         _put_lin(out, "fc.0", params["fc"]["linear"])
         _put_bn(out, "fc.1", params["fc"]["bn"])
@@ -257,6 +296,12 @@ def to_state_dict(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
                 _put_bn(out, f"{lpre}.bn", l["bn"])
     if "classifier" in params:
         _put_lin(out, "classifier", params["classifier"])
+    if "W_R" in params:
+        for name in DAMPNET_MODULES:
+            if name.startswith("W_R"):
+                out[f"{name}.weight"] = params[name]
+            else:
+                _put_lin(out, name, params[name])
     return {k: v.detach().cpu().contiguous() for k, v in out.items()}
 
 

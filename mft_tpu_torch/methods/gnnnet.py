@@ -59,13 +59,18 @@ def project(head: dict, z_flat: torch.Tensor) -> torch.Tensor:
     return batch_norm(h, head["fc"]["bn"], None, use_batch_stats=True)[0]
 
 
-def gnn_scores(head: dict, z_episode: torch.Tensor, cfg: GnnNetCfg, n_query: int) -> torch.Tensor:
+def gnn_scores(head: dict, z_episode: torch.Tensor, cfg: GnnNetCfg, n_query: int, z_transform=None) -> torch.Tensor:
     """z_episode ``[n_way, n_support + n_query, feat]`` (support first) ->
-    scores ``[n_way * n_query, n_way]`` (class-major)."""
+    scores ``[n_way * n_query, n_way]`` (class-major).  ``z_transform``: an
+    optional hook on the projected ``[n_way, slots, proj]`` tensor before
+    the graph build (the DampNet prototype variant mean-centers and
+    L2-normalizes there, reference methods/dampnet.py:125-129)."""
     n_way, slots, _ = z_episode.shape
     if n_way != cfg.n_way or slots != cfg.n_support + n_query:
         raise ValueError(f"episode features {tuple(z_episode.shape)} do not match {cfg} with n_query={n_query}")
     z = project(head, z_episode.reshape(n_way * slots, -1)).reshape(n_way, slots, cfg.proj_dim)
+    if z_transform is not None:
+        z = z_transform(z)
     zs = z[:, : cfg.n_support]
     if cfg.support_compress > 1:
         zs = zs.reshape(n_way, cfg.support_compress, cfg.eff_support, cfg.proj_dim).mean(dim=1)

@@ -6,8 +6,9 @@ three times, then ``gen_examples`` augmented replicas); the final residual
 block (plus a throwaway linear head for the linear member) is fine-tuned
 with batch-5 torch-Adam steps on that bank (``_adapt_block``); the adapted
 backbone embeds the clean episode with batch-stats BN; the GNN head, the
-ProtoNet prototypes or the linear head score the queries; ``--method all``
-sums the linear and GNN members' softmaxes (reference finetune.py:648-650).
+ProtoNet prototypes, DampNet's recovered-feature GNN or the linear head
+score the queries; ``--method all`` sums the linear and GNN members'
+softmaxes (reference finetune.py:648-650).
 
 Two BN modes (``TransferCfg.bn_mode``):
 
@@ -47,6 +48,7 @@ from torch.profiler import record_function
 from mft_tpu_torch.core.episode import EpisodeSpec, flatten_episode, query_labels, support_labels
 from mft_tpu_torch.kernels import fused_inner_scan as fis
 from mft_tpu_torch.methods.baseline import ce_loss, classifier_logits, init_classifier
+from mft_tpu_torch.methods.dampnet import dampnet_scores, recovered_projection
 from mft_tpu_torch.methods.gnnnet import GnnNetCfg, gnn_scores
 from mft_tpu_torch.methods.protonet import proto_scores
 from mft_tpu_torch.models import backbone as bb
@@ -259,7 +261,7 @@ def _finetune_features(backbone_params, backbone_stats, episode, support_bank, g
                        tcfg: TransferCfg, aug_cfg, gen_examples: int = 0, inner_schedule=None,
                        member: str = "gnn") -> torch.Tensor:
     """The head-agnostic core of the reference's ``finetune()``
-    (finetune.py:182-306), shared by the GNN and ProtoNet members: the
+    (finetune.py:182-306), shared by the GNN, ProtoNet and DampNet members: the
     support bank, ``fine_tune_epochs`` of batch-5 Adam on the final block
     (features-as-logits inner loss), then the clean episode embedded by the
     adapted backbone with batch-stats BN.  Returns ``[n_way, s+q, feat]``.
@@ -328,6 +330,78 @@ def linear_member_scores(backbone_params, backbone_stats, episode, support_bank,
         return torch.softmax(classifier_logits(head, q_feats), dim=1)
 
 
+def dampnet_probe(damp_params, damp_state, feats, gen, *, dcfg, spec: EpisodeSpec, schedule=None, head0=None):
+    """The linear probe of ``set_forward_adaptation_full``
+    (dampnet_full_class.py:471-548): recover the episode's features from its
+    class statistics, project them to ``gnn_dim``, train a linear head on
+    the support's projections (100 epochs of batch 4, the reference's SGD).
+    Returns ``(head, query projections)``.  ``schedule`` / ``head0``:
+    explicit minibatch order and head init instead of draws from ``gen``."""
+    dev = feats.device
+    with torch.no_grad():
+        proj = recovered_projection(damp_params, damp_state, feats, dcfg)
+    z_support = proj[:, : spec.n_support].reshape(spec.support_size, -1)
+    y_support = support_labels(spec, dev)
+    if head0 is None:
+        head0 = init_classifier(gen, dcfg.gnn_dim, spec.n_way, zero_bias=False, dtype=proj.dtype, device=dev)
+
+    def loss_fn(p, idx, w):
+        return ce_loss(classifier_logits(p, z_support[idx]), y_support[idx], w)
+
+    icfg = InnerLoopCfg(epochs=100, batch_size=4, bank_size=spec.support_size)
+    head = inner_fit(loss_fn, head0, opt.reference_probe_sgd(0.01), gen, icfg, schedule=schedule, device=dev)
+    return head, proj[:, spec.n_support :].reshape(spec.query_size, -1)
+
+
+def dampnet_member_scores(backbone_params, backbone_stats, damp_params, damp_state, episode, support_bank, gen, *,
+                          bcfg, dcfg, spec: EpisodeSpec, tcfg: TransferCfg, aug_cfg, gen_examples: int = 0,
+                          eval_mode: str = "finetune", with_linear_fusion: bool = True, unsup_stats=None,
+                          inner_schedule=None) -> torch.Tensor:
+    """DampNet's eval -> softmax scores ``[n_way * n_query, n_way]``, in one
+    of four compositions (JAX eval_engine.py:711-813):
+
+    * ``eval_mode='finetune'`` (the live one, the 50-shot driver's
+      ``finetune(..., ds=True)``, finetune_50.py:589-687): the final block
+      adapted on the support bank exactly as for the GNN member
+      (``_finetune_features``, so ``--inner_scan fused`` and ``--bn_mode
+      minibatch`` apply), then the adapted features scored in the
+      'domain_shift' mode;
+    * ``eval_mode='nofinetune'`` (finetune.py:331-417): the frozen backbone's
+      features scored in the 'domain_shift' mode, plus half the softmax of
+      the probe of :func:`dampnet_probe` when ``with_linear_fusion``;
+    * ``unsup_stats=(mean, std)`` (``--unsupervised``, set_forward_unsup,
+      dampnet_full.py:298-348): the frozen backbone's features recovered
+      from an unlabeled dataset's statistics, no probe.
+
+    The reference's 5-shot driver reaches ``set_forward`` without
+    ``domain_shift`` and fails there (README "Faithfully reproduced
+    quirks"); the 50-shot composition serves every shot count, as in JAX."""
+    if unsup_stats is not None or eval_mode == "nofinetune":
+        with record_function("embed:dampnet"):
+            feats = _embed_episode(backbone_params, backbone_stats, episode, bcfg=bcfg, spec=spec)
+        with torch.no_grad(), record_function("score:dampnet"):
+            if unsup_stats is not None:
+                scores = dampnet_scores(damp_params, damp_state, feats, dcfg, spec.n_query, mode="unsup",
+                                        unsup_stats=unsup_stats)
+                return torch.softmax(scores, dim=1)
+            out = torch.softmax(dampnet_scores(damp_params, damp_state, feats, dcfg, spec.n_query,
+                                               mode="domain_shift"), dim=1)
+        if not with_linear_fusion:
+            return out
+        with record_function("score:dampnet"):
+            head, z_query = dampnet_probe(damp_params, damp_state, feats, gen, dcfg=dcfg, spec=spec)
+            with torch.no_grad():  # the probe's softmax, halved (finetune.py:411)
+                return out + torch.softmax(classifier_logits(head, z_query), dim=1) / 2.0
+    if eval_mode != "finetune":
+        raise ValueError(f"eval_mode must be 'finetune' or 'nofinetune', not {eval_mode!r}")
+    feats = _finetune_features(backbone_params, backbone_stats, episode, support_bank, gen, bcfg=bcfg, spec=spec,
+                               tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples, inner_schedule=inner_schedule,
+                               member="dampnet")
+    with torch.no_grad(), record_function("score:dampnet"):
+        scores = dampnet_scores(damp_params, damp_state, feats, dcfg, spec.n_query, mode="domain_shift")
+        return torch.softmax(scores, dim=1)
+
+
 def ensemble_episode_scores(baseline_params, baseline_stats, gnn_params, gnn_stats, gnn_head, episode, support_bank,
                             gen, *, bcfg, gcfg, spec, tcfg, aug_cfg, gen_examples: int = 0):
     """--method all: softmax(linear member) + softmax(GNN member), the two
@@ -351,18 +425,20 @@ def mean_ci95(acc_all) -> tuple:
 
 
 #: the eval methods of the port
-METHODS = ("all", "gnnnet", "gnnnet_maml", "baseline", "protonet")
+METHODS = ("all", "gnnnet", "gnnnet_maml", "baseline", "protonet", "dampnet", "dampnet_full", "dampnet_full_class")
 
 
 def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: EpisodeSpec, tcfg: TransferCfg,
-                      aug_cfg, gen_examples: int):
+                      aug_cfg, gen_examples: int, dcfg=None, dampnet_eval: str = "finetune"):
     """The per-episode eval: ``fn(models, base_episode, gen) -> (scores, acc)``
     with ``base_episode`` uint8 ``[n_way, s+q, 3, H0, W0]`` on the device and
     ``models`` holding what ``method`` reads: ``baseline=(params, stats)``
     (``all``, ``baseline``), ``gnn=(params, stats, head)`` (``all``,
-    ``gnnnet``, ``gnnnet_maml``) or ``protonet=(params, stats)``.  In the
-    minibatch BN mode the replica bank is built once per episode and both
-    members of ``--method all`` train on it."""
+    ``gnnnet``, ``gnnnet_maml``), ``protonet=(params, stats)`` or
+    ``dampnet=(params, stats, damp_params, damp_state)`` (with ``dcfg`` and
+    ``dampnet_eval``; ``unsup_stats=(mean, std)`` selects the unsupervised
+    composition).  In the minibatch BN mode the replica bank is built once
+    per episode and both members of ``--method all`` train on it."""
     if method not in METHODS:
         raise ValueError(f"the port evaluates --method {'|'.join(METHODS)}, not {method!r}")
     _check_modes(tcfg)
@@ -382,6 +458,9 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
             scores = gnn_member_scores(*models["gnn"], episode, support, gen, gcfg=gcfg, **kw)
         elif method == "protonet":
             scores = proto_member_scores(*models["protonet"], episode, support, gen, **kw)
+        elif method.startswith("dampnet"):
+            scores = dampnet_member_scores(*models["dampnet"], episode, support, gen, dcfg=dcfg,
+                                           eval_mode=dampnet_eval, unsup_stats=models.get("unsup_stats"), **kw)
         else:
             scores = linear_member_scores(*models["baseline"], episode, support, gen, **kw)
         return scores, episode_accuracy(scores, spec)

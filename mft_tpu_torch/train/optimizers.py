@@ -92,6 +92,13 @@ def torch_sgd(lr: float, momentum: float = 0.0, dampening: float = 0.0, weight_d
     return Optimizer(init, update)
 
 
+def reference_probe_sgd(lr: float = 0.01):
+    """The linear probe's optimizer (meta_template.py:166, baselinefinetune.py;
+    DampNet's set_forward_adaptation_full): SGD with momentum 0.9, dampening
+    0.9 and weight decay 0.001."""
+    return torch_sgd(lr, momentum=0.9, dampening=0.9, weight_decay=0.001)
+
+
 def grouped(transforms: dict, labels: dict):
     """Per-subtree optimizers (the reference's separate delta_opt /
     classifier_opt, finetune.py:109,124).  ``labels`` maps each top-level

@@ -1,5 +1,4 @@
-"""Training step functions (port of ``mft_tpu/train/steps.py``, without
-``dampnet_train_step``).
+"""Training step functions (port of ``mft_tpu/train/steps.py``).
 
 * supervised baseline pretraining: backbone + linear CE over the base
   classes (reference train.py --method baseline, baselinetrain.py:26-56);
@@ -9,7 +8,9 @@
   on the last backbone block over the support set (15 epochs x batch 4,
   gnnnet.py:145-177), the outer CE on the query set at the adapted point
   with its gradient applied to the meta-initialization
-  (gnnnet.py:90-103,183-187, train.py:49-58).
+  (gnnnet.py:90-103,183-187, train.py:49-58);
+* DampNet's episodic step (train_loop_full, dampnet_full_class.py:425-469)
+  in the mode its driver's schedule gives.
 
 Each step takes an episode batch ``[E, n_way, s+q, 3, H, W]`` (E = 1 is the
 reference's schedule), averages the losses and the running-stat updates over
@@ -28,6 +29,7 @@ from torch.utils import _pytree as pytree
 
 from mft_tpu_torch.core.episode import EpisodeSpec, flatten_episode, support_labels
 from mft_tpu_torch.methods.baseline import ce_loss, classifier_logits, top1_accuracy
+from mft_tpu_torch.methods.dampnet import dampnet_loss, dampnet_scores
 from mft_tpu_torch.methods.gnnnet import gnn_scores, gnnnet_loss
 from mft_tpu_torch.methods.protonet import proto_scores, protonet_loss
 from mft_tpu_torch.models import backbone as bb
@@ -138,6 +140,41 @@ def episodic_train_step(params, stats, opt_state, episodes, *, method, bcfg, gcf
     loss, new_stats, grads = _value_and_grad(batch_loss, params)
     params, opt_state = _apply(tx, params, grads, opt_state)
     return params, new_stats, opt_state, {"loss": loss}
+
+
+# --------------------------------------------------------------------------
+# DampNet episodic training (train_loop_full)
+# --------------------------------------------------------------------------
+
+
+def dampnet_train_step(params, stats, opt_state, dstate, episodes, gen, *, mode, bcfg, dcfg, spec: EpisodeSpec, tx,
+                       corrupt_x=None):
+    """One DampNet step over an episode batch ``[E, n_way, s+q, 3, H, W]``:
+    each episode embedded by the backbone in train mode (running stats
+    updated, averaged over E), scored by ``dampnet_scores`` in ``mode``
+    ('plain' / 'corrupt' / 'recover'), CE on the queries, Adam over every
+    parameter.  ``gen`` draws each corrupt episode's corruption unless
+    ``corrupt_x [E, n_way*(s+q), feat]`` gives it.  The metrics hold the
+    episodes' clean support features ``support_bank [E, n_way*n_support,
+    feat]`` (detached) for the driver's prototype refresh (:456-462)."""
+
+    def one(p, i, ep):
+        feats, new_stats = bb.apply_backbone(p["feature"], stats, flatten_episode(ep), cfg=bcfg, train=True,
+                                             update_stats=True)
+        z = feats.reshape(spec.n_way, spec.n_per_class, -1)
+        head = {k: v for k, v in p.items() if k != "feature"}
+        scores = dampnet_scores(head, dstate, z, dcfg, spec.n_query, mode=mode, gen=gen,
+                                corrupt_x=None if corrupt_x is None else corrupt_x[i])
+        bank = z[:, : spec.n_support].reshape(spec.support_size, -1).detach()
+        return dampnet_loss(scores, spec.n_way, spec.n_query), new_stats, bank
+
+    def batch_loss(p):
+        losses, new_stats, banks = zip(*(one(p, i, ep) for i, ep in enumerate(episodes)))
+        return torch.stack(losses).mean(), (_tree_mean(new_stats), torch.stack(banks))
+
+    loss, (new_stats, banks), grads = _value_and_grad(batch_loss, params)
+    params, opt_state = _apply(tx, params, grads, opt_state)
+    return params, new_stats, opt_state, {"loss": loss, "support_bank": banks}
 
 
 # --------------------------------------------------------------------------

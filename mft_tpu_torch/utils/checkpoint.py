@@ -8,7 +8,12 @@ the reference read.  The port adds one key, ``'adam'``: the driver's Adam
 state (step count, and both moments keyed by their parameter's path), so
 that ``--start_epoch`` resumes the optimizer as the JAX driver does
 (cli/train.py:120-139).  A file without it (one the reference or
-``mft_tpu.cli.export_ckpt`` wrote) resumes with a fresh Adam.
+``mft_tpu.cli.export_ckpt`` wrote) resumes with a fresh Adam.  A DampNet
+file adds one more, ``'damp_state'``: the prototypes, the rolling stores and
+their count, which the reference keeps as plain attributes outside its state
+dict.  A DampNet file without it loads with a fresh state (``initialized``
+False), as ``mft_tpu.cli.import_ckpt`` rebuilds one (:89-114).  The
+reference ignores both extra keys.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ def _fill(template, flat: dict, device):
     return pytree.tree_unflatten([flat[pytree.keystr(p)].to(device=device, dtype=t.dtype) for p, t in paths], spec)
 
 
-def save_checkpoint(ckpt_dir: str, epoch: int, params, stats, opt_state=None) -> str:
+def save_checkpoint(ckpt_dir: str, epoch: int, params, stats, opt_state=None, damp_state=None) -> str:
     """Write ``<ckpt_dir>/<epoch>.tar`` (through a temporary file, so a cut
     run leaves no half-written checkpoint)."""
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -47,25 +52,42 @@ def save_checkpoint(ckpt_dir: str, epoch: int, params, stats, opt_state=None) ->
     if opt_state is not None:
         cpu = lambda t: {k: v.detach().cpu() for k, v in keyed(t).items()}
         blob["adam"] = {"t": int(opt_state["t"]), "mu": cpu(opt_state["mu"]), "nu": cpu(opt_state["nu"])}
+    if damp_state is not None:
+        blob["damp_state"] = {k: v.detach().cpu() for k, v in damp_state.items()}
     torch.save(blob, path + ".tmp")
     os.replace(path + ".tmp", path)
     return path
 
 
-def load_checkpoint(path: str, bcfg, opt_template, *, device="cpu"):
+def load_checkpoint(path: str, bcfg, opt_template, *, device="cpu", damp_template=None):
     """``(epoch, params, stats, opt_state)`` from a ``.tar``; ``opt_state``
     takes ``opt_template``'s structure (the driver's fresh ``tx.init``) and
-    is ``opt_template`` itself when the file holds no Adam state."""
+    is ``opt_template`` itself when the file holds no Adam state (or
+    ``opt_template`` is None).  With ``damp_template`` (a DampNet model's
+    fresh state) a fifth item follows: the file's ``damp_state``, or
+    ``damp_template`` itself when the file holds none."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(blob, dict) or "state" not in blob:
         raise ValueError(f"{path} is not a reference checkpoint (expected {{'epoch', 'state'}})")
     params, stats = from_state_dict(blob["state"], bcfg, device=device)
     opt_state = opt_template
-    if "adam" in blob:
+    if "adam" in blob and opt_template is not None:
         a = blob["adam"]
         opt_state = {"mu": _fill(opt_template["mu"], a["mu"], device), "nu": _fill(opt_template["nu"], a["nu"], device),
                      "t": int(a["t"])}
-    return int(blob.get("epoch", 0)), params, stats, opt_state
+    out = (int(blob.get("epoch", 0)), params, stats, opt_state)
+    if damp_template is None:
+        return out
+    return out + (_damp_state(blob.get("damp_state"), damp_template, path, device),)
+
+
+def _damp_state(saved, template: dict, path: str, device) -> dict:
+    if saved is None:
+        return template
+    if set(saved) != set(template) or any(tuple(saved[k].shape) != tuple(v.shape) for k, v in template.items()):
+        raise ValueError(f"{path}: its damp_state {({k: tuple(v.shape) for k, v in saved.items()})} is not this "
+                         f"DampNet variant's {({k: tuple(v.shape) for k, v in template.items()})}")
+    return {k: saved[k].to(device=device, dtype=v.dtype) for k, v in template.items()}
 
 
 def get_assigned_file(ckpt_dir: str, num: int) -> str:

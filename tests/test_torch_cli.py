@@ -56,7 +56,7 @@ def test_finetune_method_all_on_cpu(save_dir, capsys):
     assert res.mean > 100.0 / 5
 
 
-def test_entry_point_needs_a_card_unless_cpu_is_asked():
+def test_entry_point_needs_a_card_unless_cpu_is_asked(tmp_path):
     import torch
 
     from mft_tpu_torch import resolve_device
@@ -66,8 +66,37 @@ def test_entry_point_needs_a_card_unless_cpu_is_asked():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             finetune.main(["--method", "all", "--test_dataset", "synthetic"])
-    with pytest.raises(NotImplementedError, match="--method dampnet_full_class .*item 16"):
-        finetune.main(["--device", "cpu", "--method", "dampnet_full_class", "--test_dataset", "synthetic"])
+    # DampNet evaluates since it was ported: a JAX-written reference .tar (no
+    # damp_state, so the prototypes are swept first; recovery widths cut to
+    # keep the file small)
+    from unittest import mock
+
+    from mft_tpu.methods import dampnet as jdn
+    from mft_tpu.models import backbone as jbb
+    from mft_tpu.utils import torch_import as ti
+    from mft_tpu_torch import config as tcfg
+    from mft_tpu_torch.methods import dampnet as tdn
+
+    narrow = dict(ntn_dim=8, mlp_hidden=16)
+    fp, fs = jax.jit(lambda k: jbb.init_backbone(k, jbb.resnet10()))(jax.random.PRNGKey(3))
+    dp, _ = jax.jit(lambda k: jdn.init_dampnet(k, jdn.DampNetCfg(n_support=2, **narrow)))(jax.random.PRNGKey(4))
+    sd = ti.export_state_dict(jax.tree.map(np.asarray, {"feature": fp, **dp}), jax.tree.map(np.asarray, fs),
+                              jbb.resnet10())
+    d = tcfg.checkpoint_dir(tcfg.Paths(save_dir=str(tmp_path)), "synthetic", "ResNet10", "dampnet_full_class",
+                            train_aug=False, n_way=5, n_shot=2)
+    os.makedirs(d)
+    torch.save({"epoch": 1, "state": {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}},
+               os.path.join(d, "1.tar"))
+    pj = str(tmp_path / "paths.json")
+    with open(pj, "w") as f:
+        f.write('{"save_dir": "%s"}' % tmp_path)
+    real = tdn.method_cfg
+    with mock.patch.object(tdn, "method_cfg", lambda *a: real(*a)._replace(**narrow)):
+        res = finetune.main(["--device", "cpu", "--method", "dampnet_full_class", "--dataset", "synthetic",
+                             "--test_dataset", "synthetic", "--image_size", "32", "--n_shot", "2", "--n_query", "2",
+                             "--gen_examples", "1", "--fine_tune_epoch", "1", "--iter_num", "1", "--sweep_images",
+                             "64", "--paths_json", pj])
+    assert len(res.accs) == 1 and 0.0 <= res.accs[0] <= 100.0
     with pytest.raises(NotImplementedError, match="--method relationnet"):
         finetune.main(["--device", "cpu", "--method", "relationnet", "--test_dataset", "synthetic"])
     # flags of the JAX driver that the port does not implement are not defined
@@ -91,7 +120,7 @@ print("BAD", bad)
 print("N", sum(k.startswith("mft_tpu_torch") for k in sys.modules))
 need = ["mft_tpu_torch." + m for m in ("cli.train", "train.steps", "methods.protonet", "utils.checkpoint",
                                          "utils.metrics", "data.pipeline", "train.inner_loop", "cli.finetune_50",
-                                         "cli.train_50")]
+                                         "cli.train_50", "methods.dampnet", "train.optimizers", "convert")]
 print("MISSING", [m for m in need if m not in sys.modules])
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -150,14 +150,25 @@ def test_protonet_stages_both_bn_modes(tmp_path):
     assert all(k.startswith("feature.") for k in sd)
 
 
-def test_refusals():
+def test_refusals(tmp_path):
+    from unittest import mock
+
     from mft_tpu_torch.cli import train
+    from mft_tpu_torch.methods import dampnet as tdn
 
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train.main(["--dataset", "synthetic"])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        train.main(COMMON + ["--method", "dampnet_full_class"])
+    # DampNet trains since it was ported (recovery widths cut to keep the file small)
+    pj = str(tmp_path / "paths.json")
+    with open(pj, "w") as f:
+        json.dump({"save_dir": str(tmp_path)}, f)
+    real = tdn.method_cfg
+    tiny = lambda *a: real(*a)._replace(ntn_dim=8, mlp_hidden=16)
+    with mock.patch.object(tdn, "method_cfg", tiny):
+        res = train.main(COMMON + ["--method", "dampnet_full_class", "--n_shot", "2", "--n_query", "2",
+                                   "--episodes_per_epoch", "1", "--stop_epoch", "0", "--paths_json", pj])
+    assert len(res.losses) == 1 and np.isfinite(res.losses[0])
     with pytest.raises(NotImplementedError, match="item 18"):
         train.main(COMMON + ["--model", "ResNet10_FW"])
     for flag in (["--episode_cache", "x"], ["--trace_dir", "x"], ["--unsupervised", "x"]):
