@@ -32,11 +32,19 @@ non-zero:
    with the host's enqueue time, the device time per kernel and the step's
    L2 traffic beside it; then the same checks on the 50-shot bank of 5000
    rows, the first steps gathering its last rows, and the 5000-step scan
-   timed beside its bound);
+   timed beside its bound; then the scan on the five lanes of an
+   ``--eval_batch 5`` call, each with its own 500-row bank and schedule: the
+   update rule step by step on every lane, 20-step scans against the bound
+   with planted lane faults (lane 0 on its neighbour's bank or schedule), and
+   the 500-step five-lane scan timed beside one lane; and the edge kernel on
+   a lane batch's B = 75 graphs at N = 30 and N = 130);
 4. check the eval on the card against the same eval on the CPU at a small
    size (strict f32 with the eager inner loop; then the fused scan on the
    card against its plain version on the CPU; then the faithful
-   ``bn_mode='minibatch'`` eval), few inner steps; then one
+   ``bn_mode='minibatch'`` eval), few inner steps; then three episodes as
+   one lane batch on the card against the same episodes one at a time on
+   the CPU (64 px, strict f32 eager, then the fused scan; each beside a
+   planted fault, BN statistics over all lanes, that it must catch); then one
    step of each training stage (baseline, episodic GnnNet with the edge
    kernel, the meta fine-tune with a fixed inner schedule, the 50-shot
    GnnNet step of ``cli.train_50``) on the card against the CPU at 64 px:
@@ -47,7 +55,8 @@ non-zero:
    ``fine_tune_epoch=5`` — on the synthetic dataset with seeded random
    checkpoints (baseline@400, gnnnet_aug@600 5-shot and 50-shot, protonet@400
    ``.tar`` files), with every
-   kernel launch count set to 0 just before and read just after; then two
+   kernel launch count set to 0 just before and read just after (these
+   drives pass ``--eval_batch 1``, one episode a batch); then two
    episodes with the eager inner loop (``--inner_scan eager``), so that the
    seconds per episode of both stand side by side from one host; then two
    episodes of the strict f32 numerics (``--dtype float32
@@ -60,6 +69,16 @@ non-zero:
    profiled episode), the faithful 5-shot eval (``--bn_mode minibatch``,
    strict f32, 2 episodes and one profiled) and a ``--method protonet``
    eval (2 episodes), each with its seconds per episode and peak memory;
+   then the episode lanes of ``--eval_batch 5`` (the JAX driver's default):
+   the fused main path for 15 episodes (three batches, the first the warm-up;
+   launch counts set to 0 before and read after: the scan once a batch, the
+   edge kernel three times a batch) and one profiled batch; the eval
+   engine's knobs, each for three batches timed against its default
+   (``--inner_gather epoch``, ``--inner_carry flat`` and
+   ``--fanout_group_pass 6`` on the fused lanes, ``--ensemble_fuse lane``
+   on the eager ones); three batches with ``--inner_scan eager`` and three
+   with ``--freeze_backbone``; and one 50-shot batch through
+   ``cli.finetune_50`` (its time includes the warm-up);
 6. drive the training path through ``mft_tpu_torch.cli.train.main`` at full
    width on the synthetic dataset (baseline, batch 16; episodic GnnNet
    ``--train_aug --use_pallas``; ``--fine_tune`` resumed from its
@@ -72,7 +91,8 @@ The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 the main path, max error, kernel / plain / bound times; launches on the
 training path and, for the edge kernel, one training step's forward times
 and its plain backward's; launches on the 50-shot main path and its times
-and bounds, and train_50's); the last line is
+and bounds, and train_50's; launches on the 5-lane paths and a lane
+batch's times and bounds); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -91,6 +111,28 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 EPISODES = 3
 #: 50-shot episodes of the main-path run (the first is the warm-up)
 EPISODES_50 = 2
+#: the lane runs of phase 5: --eval_batch LANES; the episodes of each timed lane drive (three batches, the first the
+#: warm-up: one steady batch moved by up to a fifth between batches on one H100's host)
+LANES = 5
+LANE_EPISODES = 15
+#: --fanout_group_pass of phase 5's knob timing: three trunk passes of six replica groups for the 18 of a bank
+FANOUT_GROUP_PASS = 6
+#: phase 4: episodes of one lane batch on the card against the same episodes alone on the CPU
+XDEV_LANES = 3
+#: phase 4, lanes with one inner epoch: Adam's first steps move each weight by
+#: about lr whatever a gradient's size, so f32 rounding parts the card's lanes
+#: from the CPU's episodes by 3.4e-3 (eager) and 4.0e-3 (fused) in the scores
+#: at 64 px (measured on one H100, which also met queries whose top two scores
+#: lay within that of each other and flipped).  No score may part by more than
+#: XDEV_LANE_CAP, some 3x those readings and under the 3.3e-2 of the planted
+#: fault (BN statistics taken over all lanes together) without inner steps;
+#: so the argmax must agree wherever the CPU's top two scores lie further
+#: apart than twice the cap, which no sound run can flip.  Without inner
+#: steps the bound stays XDEV_TOL.  The fault is planted at both depths and
+#: in both inner loops, and each check must catch it.
+XDEV_LANE_CAP = 1e-2
+XDEV_LANE_MARGIN = 2 * XDEV_LANE_CAP
+XDEV_LANE_FAULT = "BN statistics over all lanes together"
 #: f32 kernel vs f32 plain product: same math, other summation order
 EDGE_REL_TOL = 1e-4
 #: the edge kernel vs the plain emulation of its own arithmetic (the
@@ -392,6 +434,10 @@ EDGE_GRAD_FAULT = "dx without its -sum_i term"
 #: backward plain
 EDGE_50 = ((15, 130, 133, 192), (15, 130, 181, 192), (15, 130, 229, 192))
 EDGE_TRAIN50 = ((16, 130, 133, 192), (16, 130, 181, 192), (16, 130, 229, 192))
+#: the lane batches of --eval_batch 5: every Wcompute takes the graphs of all
+#: five episodes in one call, B = 15 * 5 = 75 (5-shot N = 30, 50-shot N = 130)
+EDGE_LANES = ((75, 30, 133, 192), (75, 30, 181, 192), (75, 30, 229, 192))
+EDGE_LANES50 = ((75, 130, 133, 192), (75, 130, 181, 192), (75, 130, 229, 192))
 #: besides: rows not a multiple of 64 with C and F under one tile; F a
 #: multiple of 64; one graph; the three-query graphs of phase 4 (5-shot and
 #: 50-shot)
@@ -417,9 +463,11 @@ def phase_edge_kernel(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     worst_abs, main = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     train, fifty, train50 = dict(main), dict(main), dict(main)  # three calls: a training step, a 50-shot episode, a train_50 step
+    lanes, lanes50 = dict(main), dict(main)  # three calls of a 5-lane batch, 5-shot and 50-shot
     bound_by = {"bytes": 0.0, "operations": 0.0}  # the main calls' bounds, summed by what binds each
-    sums = ((EDGE_MAIN, main), (EDGE_TRAIN, train), (EDGE_50, fifty), (EDGE_TRAIN50, train50))
-    checked = EDGE_MAIN + EDGE_TRAIN + EDGE_50 + EDGE_TRAIN50
+    sums = ((EDGE_MAIN, main), (EDGE_TRAIN, train), (EDGE_50, fifty), (EDGE_TRAIN50, train50), (EDGE_LANES, lanes),
+            (EDGE_LANES50, lanes50))
+    checked = EDGE_MAIN + EDGE_TRAIN + EDGE_50 + EDGE_TRAIN50 + EDGE_LANES + EDGE_LANES50
     for b, n, f, c in checked + EDGE_OTHER:
         label = f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}"
         x = torch.randn((b, n, f), generator=gen, device=dev)
@@ -490,6 +538,9 @@ def phase_edge_kernel(torch, dev):
     print(f"edge_abs_diff_matmul, one 50-shot episode's three calls (N = 130, B = 15): device {fifty['ms']:.5f} ms, plain "
           f"{fifty['plain_ms']:.5f} ms, bound {fifty['bound_ms']:.5f} ms; one train_50 step's three forward calls (B = 16): "
           f"device {train50['ms']:.5f} ms, plain {train50['plain_ms']:.5f} ms, bound {train50['bound_ms']:.5f} ms")
+    print(f"edge_abs_diff_matmul, one {LANES}-lane batch's three calls (B = 75): N = 30 device {lanes['ms']:.5f} ms, plain "
+          f"{lanes['plain_ms']:.5f} ms, bound {lanes['bound_ms']:.5f} ms; N = 130 device {lanes50['ms']:.5f} ms, plain "
+          f"{lanes50['plain_ms']:.5f} ms, bound {lanes50['bound_ms']:.5f} ms")
     bwd_ms = phase_edge_gradient(torch, dev, edge_mlp, EDGE_TRAIN)
     bwd50_ms = phase_edge_gradient(torch, dev, edge_mlp, EDGE_TRAIN50)
     return {
@@ -519,6 +570,12 @@ def phase_edge_kernel(torch, dev):
         "ms_train50": train50["ms"],
         "bound_ms_train50": train50["bound_ms"],
         "backward_plain_ms_train50": bwd50_ms,
+        # a --eval_batch 5 lane batch (B = 75): its three calls at N = 30, and at N = 130 (finetune_50)
+        "ms_lanes": lanes["ms"],
+        "plain_ms_lanes": lanes["plain_ms"],
+        "bound_ms_lanes": lanes["bound_ms"],
+        "ms_lanes50": lanes50["ms"],
+        "bound_ms_lanes50": lanes50["bound_ms"],
     }
 
 
@@ -1123,6 +1180,95 @@ def phase_fused_inner_scan_50(torch, dev):
           f"that must move -> {b['ms_bytes']:.3f} ms; bound_ms={bound_ms:.3f}; the kernels take {ms / bound_ms:.1f} x that")
     return {"ms_50": ms, "bound_ms_50": bound_ms, "max_abs_err_50": worst_abs}
 
+#: faults the lane check must catch: lane 0's plain scan on its neighbour's bank, or on its neighbour's schedule
+FUSED_LANE_FAULTS = ("lane 0 reads lane 1's bank", "lane 0 reads lane 1's schedule")
+
+
+def phase_fused_lanes(torch, dev):
+    """The fused scan on LANES lanes at the main path's geometry, as
+    ``--eval_batch 5`` calls it: a 500-row bf16 bank and a schedule of its
+    own per lane, the labels and weights shared, bf16 carry.  The update
+    rule step by step on every lane (the kernels' state after 1 to
+    FUSED_REPLAY_STEPS steps against the plain Adam update of its own state
+    and the kernels' gradients), 20-step scans of all lanes in one call
+    against the floor-based bound, and planted lane faults (lane 0 on its
+    neighbour's bank, then on its neighbour's schedule) that the bound must
+    catch; then the 500-step scan on LANES lanes timed beside one lane (the
+    host loop enqueues the lanes one after another)."""
+    from mft_tpu_torch.kernels import fused_inner_scan as fis
+    from mft_tpu_torch.train.inner_loop import InnerLoopCfg, lane_schedule
+
+    geom, span, lr = fis.BlockGeom(), 500, 0.01
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    p16 = {k: (randn(LANES, *shape) * (2.0 / shape[0]) ** 0.5 if k.startswith("conv")
+               else randn(LANES, *shape) * 0.1 + (1.0 if k.endswith("_s") else 0.0)).to(torch.bfloat16)
+           for k, shape in fis.param_shapes(geom).items()}
+    banks = torch.relu(randn(LANES, span, geom.h_in, geom.h_in, geom.c_in)).to(torch.bfloat16)
+    bank_y = torch.arange(span, device=dev) % 5
+    idx, w = lane_schedule([torch.Generator().manual_seed(20 + l) for l in range(LANES)],
+                           InnerLoopCfg(5, geom.batch, span), dev)
+    lane = lambda tree, l: {k: v[l] for k, v in tree.items()}
+    zeros = lambda: {k: torch.zeros_like(v[0]) for k, v in p16.items()}
+    moved_share = lambda a, b, start: {k: float((a[k].double() - b[k].double()).norm())
+                                       / float((b[k].double() - start[k].double()).norm()) for k in fis.PKEYS}
+    failures, tag = [], f"fused_inner_scan bf16 carry, L={LANES}"
+    states = {l: [lane(p16, l)] for l in range(LANES)}
+    for n in range(1, FUSED_REPLAY_STEPS + 1):
+        got = fis.fused_inner_scan_lanes(p16, banks, bank_y, idx[:, :n].contiguous(), w[:n], geom=geom, lr=lr)
+        for l in range(LANES):
+            states[l].append(lane(got, l))
+    rtol, worst_share = FUSED_REPLAY_RTOL["bfloat16"], 1.0
+    for l in range(LANES):
+        mu, nu = zeros(), zeros()
+        for t in range(FUSED_REPLAY_STEPS):
+            g, _ = fis.fused_step_grads(states[l][t], banks[l], bank_y, idx[l, t], w[t], geom=geom)
+            mine, mu, nu = fis.adam_update_reference(states[l][t], mu, nu, g, t + 1, lr)
+            close = min(float(((states[l][t + 1][k].float() - mine[k].float()).abs()
+                               <= 1e-7 + rtol * mine[k].float().abs()).float().mean()) for k in fis.PKEYS)
+            worst_share = min(worst_share, close)
+            if not close >= FUSED_REPLAY_SHARE:
+                failures.append(f"update rule, lane {l} step {t + 1}")
+    print(f"{tag}: steps 1-{FUSED_REPLAY_STEPS} of every lane vs the plain Adam update of its own state and gradients: "
+          f"share of elements within rtol {rtol:g} >= {worst_share:.5f} (at least {FUSED_REPLAY_SHARE:g})")
+    want20 = [fis.fused_inner_scan_reference(lane(p16, l), banks[l], bank_y, idx[l, :20], w[:20], geom=geom, lr=lr)
+              for l in range(LANES)]
+    got20 = fis.fused_inner_scan_lanes(p16, banks, bank_y, idx[:, :20].contiguous(), w[:20], geom=geom, lr=lr)
+    tols = []
+    for l in range(LANES):  # the floor: plain vs plain with every minibatch's rows reversed
+        other = fis.fused_inner_scan_reference(lane(p16, l), banks[l], bank_y, torch.flip(idx[l, :20], dims=(1,)),
+                                               torch.flip(w[:20], dims=(1,)), geom=geom, lr=lr)
+        floor = max(moved_share(other, want20[l], lane(p16, l)).values())
+        tols.append(min(FUSED_SCAN_FLOOR_FACTOR * floor, FUSED_SCAN_CAP))
+        rel = max(moved_share(lane(got20, l), want20[l], lane(p16, l)).values())
+        print(f"{tag}, T=20 lane {l}: worst |kernel - plain| / |plain - start| = {rel:.3e}; floor {floor:.3e}, tol "
+              f"{tols[l]:.3e}")
+        if not rel <= tols[l]:
+            failures.append(f"20 steps, lane {l}")
+    planted = {"no fault": (banks[0], idx[0]), FUSED_LANE_FAULTS[0]: (banks[1], idx[0]),
+               FUSED_LANE_FAULTS[1]: (banks[0], idx[1])}
+    for fault, (bank, sched) in planted.items():
+        faulty = fis.fused_inner_scan_reference(lane(p16, 0), bank, bank_y, sched[:20], w[:20], geom=geom, lr=lr)
+        reading = max(moved_share(faulty, want20[0], lane(p16, 0)).values())
+        caught = reading > tols[0]
+        print(f"{tag}, T=20 lane 0, plain version with a planted fault ({fault}): worst share {reading:.3e} against "
+              f"the bound {tols[0]:.3e}: {'caught' if caught else 'passes'}")
+        if caught == (fault == "no fault"):
+            failures.append(f"the lane bound with {fault}")
+    if failures:
+        fail(f"the fused inner scan on {LANES} lanes disagrees with its plain version: " + ", ".join(failures))
+    n_steps = idx.shape[1]
+    one = cuda_time_ms(lambda: fis.fused_inner_scan_lanes({k: v[:1] for k, v in p16.items()}, banks[:1], bank_y,
+                                                          idx[:1], w, geom=geom, lr=lr), iters=2, warmup=1)
+    ms = cuda_time_ms(lambda: fis.fused_inner_scan_lanes(p16, banks, bank_y, idx, w, geom=geom, lr=lr), iters=2,
+                      warmup=1)
+    b = fused_bound(geom, n_steps, 2, 2)
+    bound_ms = LANES * max(b["ms_tc"], b["ms_bytes"])
+    print(f"fused_inner_scan T={n_steps} bf16 L={LANES}: kernel_ms={ms:.3f} against L=1 {one:.3f} in the same call "
+          f"({ms / one:.2f} x: the lanes run one after another); bound_ms={bound_ms:.3f} ({LANES} lanes' operations)")
+    return {"ms_lanes": ms, "bound_ms_lanes": bound_ms, "ms_lanes_one": one}
+
+
 def phase_cross_device(torch, dev):
     """One small episode on the card (edge kernel on) and on the CPU (plain
     versions), same weights, draws and schedule (one seeded generator, whose
@@ -1164,7 +1310,7 @@ def phase_cross_device(torch, dev):
         for d in ("cpu", dev):
             models = {"baseline": (to(bp, d), to(bs, d)), "gnn": (to(gp, d), to(gs, d), to(head, d))}
             base = torch.from_numpy(images).to(d).permute(0, 1, 4, 2, 3)
-            scores[d], _ = program(models, base, torch.Generator().manual_seed(3))
+            scores[d] = program(models, base[None], [torch.Generator().manual_seed(3)])[0][0]
         diff = float((scores[dev].cpu() - scores["cpu"]).abs().max())
         agree = bool((scores[dev].cpu().argmax(1) == scores["cpu"].argmax(1)).all())
         print(f"card vs CPU eval (32 px, f32, {bn_mode} BN mode, {mode} inner loop, {epochs} inner epochs): max |d scores| "
@@ -1172,6 +1318,51 @@ def phase_cross_device(torch, dev):
         if not agree or (epochs == 0 and not diff <= XDEV_TOL):
             fail(f"card eval ({bn_mode}, {mode}) disagrees with the CPU eval at {epochs} inner epochs (tol {XDEV_TOL:g} "
                  f"without steps)")
+
+    # episode lanes: XDEV_LANES episodes as one lane batch on the card against the same episodes one at a time on
+    # the CPU (64 px, so the final block sees 4x4 maps; strict f32 eager, then the fused scan's lanes)
+    from unittest import mock
+
+    from mft_tpu_torch.ops import norm
+
+    aug = AugmentCfg(image_size=64)
+    lanes = np.random.RandomState(4).randint(0, 256, (XDEV_LANES, 5, 8, 73, 73, 3), dtype=np.uint8)
+    gens = lambda: [torch.Generator().manual_seed(10 + i) for i in range(XDEV_LANES)]
+    real_bn = norm.batch_norm
+    leaky_bn = lambda *a, groups=1, **k: real_bn(*a, **k)  # the planted fault: one set of statistics for all lanes
+    cpu_of = {}  # the CPU's episodes alone, per (epochs, inner loop): the fault is planted on the card only
+    for epochs, mode, fault in ((0, "eager", None), (0, "eager", XDEV_LANE_FAULT), (1, "eager", None),
+                                (1, "eager", XDEV_LANE_FAULT), (1, "fused", None), (1, "fused", XDEV_LANE_FAULT)):
+        tcfg = ee.TransferCfg(fine_tune_epochs=epochs, linear_epochs=epochs, inner_scan=mode,
+                              opt_state_dtype="float32" if mode == "eager" else "bfloat16")
+        program = ee.make_eval_program(method="all", bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug,
+                                       gen_examples=1)
+        models = {"baseline": (to(bp, dev), to(bs, dev)), "gnn": (to(gp, dev), to(gs, dev), to(head, dev))}
+        with contextlib.ExitStack() as stack:
+            if fault:
+                for mod in (bb, gn, sys.modules["mft_tpu_torch.models.gnn"]):
+                    stack.enter_context(mock.patch.object(mod, "batch_norm", leaky_bn))
+            card, _ = program(models, torch.from_numpy(lanes).to(dev).permute(0, 1, 2, 5, 3, 4), gens())
+        models = {"baseline": (bp, bs), "gnn": (gp, gs, head)}
+        base = torch.from_numpy(lanes).permute(0, 1, 2, 5, 3, 4)
+        if (epochs, mode) not in cpu_of:
+            cpu_of[epochs, mode] = torch.cat([program(models, base[i : i + 1], gens()[i : i + 1])[0]
+                                              for i in range(XDEV_LANES)])
+        cpu = cpu_of[epochs, mode]
+        card = card.cpu()
+        diff = float((card - cpu).abs().max())
+        top2 = cpu.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > XDEV_LANE_MARGIN
+        flipped = card.argmax(-1) != cpu.argmax(-1)
+        label = f"{XDEV_LANES} episodes as one lane batch on the card vs one at a time on the CPU (64 px, {mode} " \
+                f"inner loop, {epochs} inner epochs{', planted fault: ' + fault if fault else ''})"
+        print(f"{label}: max |d scores| = {diff:.3e}; argmax differs in {int(flipped.sum())} of {flipped.numel()} "
+              f"queries, {int((flipped & clear).sum())} of them among the {int(clear.sum())} whose top two CPU scores lie "
+              f"more than {XDEV_LANE_MARGIN:g} apart (the CPU's top-two gaps where it differs: "
+              f"{[round(float(v), 5) for v in (top2[..., 0] - top2[..., 1])[flipped]]})")
+        ok = diff <= XDEV_TOL if epochs == 0 else (diff <= XDEV_LANE_CAP and not bool((flipped & clear).any()))
+        if ok == bool(fault):
+            fail(f"the lane check {'misses the planted fault' if fault else 'fails'}: {label}")
 
 
 def _train_step_readings(torch, stage, dev, model, data, sched=None, dtype=None):
@@ -1533,7 +1724,7 @@ def phase_dampnet_cross_device(torch, dev):
         for d in ("cpu", dev):
             models = {"dampnet": (to(feature, d), to(stats, d), to(head, d), to(dstate, d))}
             base = torch.from_numpy(images).to(d).permute(0, 1, 4, 2, 3)
-            scores[d], _ = program(models, base, torch.Generator().manual_seed(3))
+            scores[d] = program(models, base[None], [torch.Generator().manual_seed(3)])[0][0]
         diff = float((scores[dev].cpu() - scores["cpu"]).abs().max())
         agree = bool((scores[dev].cpu().argmax(1) == scores["cpu"].argmax(1)).all())
         print(f"card vs CPU DampNet eval (dampnet_full_class, 32 px, f32, {scan} inner loop, {epochs} inner epochs): "
@@ -1579,18 +1770,20 @@ def write_checkpoints(torch, save_dir):
 
 
 def drive(torch, finetune, label: str, argv, episodes: int) -> float:
-    """``episodes`` episodes through the eval driver; checks the accuracies,
-    prints the peak device memory, and returns the mean seconds per episode
-    after the first (warm-up)."""
+    """``episodes`` episodes through the eval driver (in batches of its
+    ``--eval_batch``); checks the accuracies, prints the peak device memory,
+    and returns the steady seconds per episode: the batches after the first
+    (warm-up) over their episodes, or the one batch when there is one."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     res = finetune.main(argv + ["--iter_num", str(episodes)])
     accs = [float(v) for v in res.accs]
     if len(accs) != episodes or not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in accs):
         fail(f"{label} accuracies out of range: {accs}")
-    steady = res.seconds[1:] or res.seconds
-    print(f"{label}: {episodes} episodes, accs {accs}, seconds per episode "
-          f"{[round(t, 3) for t in res.seconds]} (first includes warm-up)")
+    first = round(res.batch_seconds[0] / res.seconds[0])  # the first batch's episodes
+    steady = res.seconds[first:] or res.seconds
+    print(f"{label}: {episodes} episodes, accs {accs}, seconds per batch of {first} "
+          f"{[round(t, 3) for t in res.batch_seconds]} (the first includes warm-up)")
     print(f"{label} steady seconds/episode = {sum(steady) / len(steady):.4f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
     return sum(steady) / len(steady)
@@ -1637,23 +1830,26 @@ def trace_summary(prof, phases) -> dict:
 
 
 def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int, label: str = "5-shot",
-                  scan: bool = True, setup_before: bool = False):
-    """One more episode of a path under ``torch.profiler``: the symbols of
-    the edge kernel and (``scan``) of the fused scan's kernels must be on the
-    device timeline.  Prints where the time goes: each eval phase's host and
-    device milliseconds (the ``<phase>:<member>`` ranges of
-    train/eval_engine.py), the kernels with the most device time, and the
-    device's idle share, which is 1 - (device kernel time of the profiled
-    episode) / (steady seconds per episode without the profiler; the
-    profiler itself slows the host).  ``setup_before``: the driver works on
-    the device before its first episode (DampNet's source sweep), so the
-    episode's device time starts at the first phase range."""
+                  scan: bool = True, setup_before: bool = False, episodes: int = 1):
+    """One more episode (or one batch of ``episodes`` lanes) of a path under
+    ``torch.profiler``: the symbols of the edge kernel and (``scan``) of the
+    fused scan's kernels must be on the device timeline, and the edge kernel
+    launched ``edge_per_episode`` times in the profiled run.  Prints where
+    the time goes: each eval phase's host and device milliseconds (the
+    ``<phase>:<member>`` ranges of train/eval_engine.py), the kernels with
+    the most device time, and the device's idle share, which is 1 - (device
+    kernel time of the profiled run) / (steady seconds per episode without
+    the profiler times its episodes; the profiler itself slows the host).
+    ``setup_before``: the driver works on the device before its first
+    episode (DampNet's source sweep), so the episode's device time starts
+    at the first phase range."""
     from torch.profiler import ProfilerActivity, profile
 
     from mft_tpu_torch.train.eval_engine import PHASES
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = finetune.main(argv + ["--iter_num", "1"])
+        res = finetune.main(argv + ["--iter_num", str(episodes)])
+    steady_s *= episodes
     t = trace_summary(prof, PHASES)
     tag = f"profiler ({label})"
     busy_us, kernels = t["busy_us"], t["kernels"]
@@ -1668,10 +1864,10 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int,
     if edge_per_episode and edge_us == 0:
         fail(f"the profiler traced device kernels but not the edge kernel ({label})")
     if edge_n != edge_per_episode:
-        fail(f"the profiled {label} episode ran the edge kernel {edge_n} times, the path {edge_per_episode} an episode")
+        fail(f"the profiled {label} run launched the edge kernel {edge_n} times, the path {edge_per_episode}")
     if edge_per_episode:
         print(f"{tag}: edge kernel on the device timeline, {edge_n} launches, {edge_us / 1e3:.4f} ms device time in "
-              f"one episode (W's split passes {sum_of('edge_split_w_kernel')[0] / 1e3:.4f} ms besides)")
+              f"the profiled run (W's split passes {sum_of('edge_split_w_kernel')[0] / 1e3:.4f} ms besides)")
     else:
         print(f"{tag}: no edge kernel on the device timeline, as the path has none")
     scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAllAdam", "bn_fwd_kernel", "bn_bwd_kernel")
@@ -1682,8 +1878,9 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int,
         fail(f"the {label} episode ran kernels of the fused scan, which its path does not use: {scan_us}")
     if scan:
         print(f"{tag}: fused scan kernels on the device timeline, {sum(scan_us.values()) / 1e3:.3f} ms device time "
-              f"in one episode: " + ", ".join(f"{sym} {us / 1e3:.3f}" for sym, us in scan_us.items()))
-    print(f"{tag}: episode {res.seconds[0]:.3f} s under the profiler, {steady_s:.3f} s without; "
+              f"in the profiled run: " + ", ".join(f"{sym} {us / 1e3:.3f}" for sym, us in scan_us.items()))
+    print(f"{tag}: {'episode' if episodes == 1 else f'batch of {episodes}'} {sum(res.batch_seconds):.3f} s under the "
+          f"profiler, {steady_s:.3f} s without; "
           f"device time {busy_us / 1e6:.4f} s; idle share {1.0 - busy_us / 1e6 / steady_s:.4f}")
     for name in sorted(t["host_us"], key=lambda k: -t["host_us"][k]):
         print(f"{tag} phase {name}: host {t['host_us'][name] / 1e3:.3f} ms, device "
@@ -1813,7 +2010,7 @@ def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
     op), one profiled episode; then one episode each of ``--unsupervised
     synthetic`` and ``--dampnet_eval nofinetune`` (neither adapts: no
     scan)."""
-    damp = ["--device", "cuda", "--method", "dampnet_full_class", "--train_aug", "--inner_scan", "fused",
+    damp = ["--device", "cuda", "--method", "dampnet_full_class", "--train_aug", "--inner_scan", "fused", "--eval_batch", "1",
             "--dataset", "synthetic", "--test_dataset", "synthetic", "--model", "ResNet10", "--image_size", "224",
             "--n_shot", "5", "--gen_examples", "17", "--fine_tune_epoch", "5", "--paths_json", paths_json]
     kernels.reset_launch_counts()
@@ -1880,6 +2077,8 @@ def main():
     mark("fused scan checks, 500-row bank")
     rows[1].update(phase_fused_inner_scan_50(torch, dev))
     mark("fused scan checks, 5000-row bank")
+    rows[1].update(phase_fused_lanes(torch, dev))
+    mark(f"fused scan checks, {LANES} lanes")
     if "--kernels-only" in sys.argv[1:]:  # for work on a kernel: stop after the checks against the plain versions
         print("kernels only: stopping before the eval phases")
         return
@@ -1898,7 +2097,7 @@ def main():
         base = ["--device", "cuda", "--method", "all", "--use_pallas", "--test_dataset", "synthetic",
                 "--model", "ResNet10", "--image_size", "224", "--gen_examples", "17", "--fine_tune_epoch", "5",
                 "--paths_json", pj]
-        common = base + ["--n_shot", "5"]
+        common = base + ["--n_shot", "5", "--eval_batch", "1"]  # one episode a batch: comparable with earlier runs
         argv = common + ["--inner_scan", "fused"]
         kernels.reset_launch_counts()
         steady = drive(torch, finetune, "main path (--inner_scan fused)", argv, EPISODES)
@@ -1919,7 +2118,7 @@ def main():
         mark("5-shot eval runs and profile")
 
         # the 50-shot main path (cli.finetune_50): 130-node graphs, a 5000-row bank, 5000 fused steps
-        argv50 = base + ["--inner_scan", "fused"]
+        argv50 = base + ["--inner_scan", "fused", "--eval_batch", "1"]
         kernels.reset_launch_counts()
         steady50 = drive(torch, finetune_50, "50-shot main path (finetune_50 --inner_scan fused)", argv50, EPISODES_50)
         counts50 = kernels.launch_counts()
@@ -1944,6 +2143,60 @@ def main():
         print(f"ProtoNet eval kernel launches: {kernels.launch_counts()}")
         mark("ProtoNet eval")
 
+        # episode lanes: the JAX driver's default --eval_batch 5, each batch one device batch of LANES episodes
+        lane_base = base + ["--n_shot", "5", "--eval_batch", str(LANES)]
+        lane_argv = lane_base + ["--inner_scan", "fused"]
+        batches = LANE_EPISODES // LANES
+        kernels.reset_launch_counts()
+        steady_l = drive(torch, finetune, f"lane path (--eval_batch {LANES} --inner_scan fused)", lane_argv,
+                         LANE_EPISODES)
+        counts_l = kernels.launch_counts()
+        print(f"lane path kernel launches: {counts_l} ({batches} batches: the scan once a batch with {LANES} lanes, "
+              f"the edge kernel three times a batch on B = {15 * LANES} graphs)")
+        if counts_l["fused_inner_scan"] != batches or counts_l["edge_abs_diff_matmul"] != 3 * batches:
+            fail(f"the lane path launched {counts_l}, not the scan once and the edge kernel 3 times a batch")
+        for row in rows:
+            row["launches_lanes"] = counts_l[row["name"]]
+        print(f"seconds/episode fused, --eval_batch {LANES} {steady_l:.4f} vs --eval_batch 1 {steady:.4f} (same call): "
+              f"{steady / steady_l:.3f} x")
+        phase_profile(torch, finetune, lane_argv, steady_l, 3, label=f"{LANES} lanes", episodes=LANES)
+        mark("5-shot lane eval and profile")
+        # the engine's knobs, each against its default in this call: --inner_gather and --inner_carry change the
+        # linear member's eager loop (the fused scan keeps the GNN member's), --fanout_group_pass the GNN bank's
+        # trunk passes; --ensemble_fuse pairs two eager loops, so it is timed on the eager path below
+        for flags in (["--inner_gather", "epoch"], ["--inner_carry", "flat"],
+                      ["--fanout_group_pass", str(FANOUT_GROUP_PASS)]):
+            knob = drive(torch, finetune, f"lane path with {' '.join(flags)} (--eval_batch {LANES} --inner_scan fused)",
+                         lane_argv + flags, LANE_EPISODES)
+            print(f"knob {' '.join(flags)}: seconds/episode {knob:.4f} vs the default's {steady_l:.4f} (fused lanes, "
+                  f"same call): {knob / steady_l:.3f} x")
+        eager_l = drive(torch, finetune, f"lane path (--eval_batch {LANES} --inner_scan eager)",
+                        lane_base + ["--inner_scan", "eager"], LANE_EPISODES)
+        print(f"seconds/episode eager, --eval_batch {LANES} {eager_l:.4f} vs --eval_batch 1 {eager:.4f} (same call): "
+              f"{eager / eager_l:.3f} x")
+        knob = drive(torch, finetune, f"lane path with --ensemble_fuse lane (--eval_batch {LANES} --inner_scan eager)",
+                     lane_base + ["--inner_scan", "eager", "--ensemble_fuse", "lane"], LANE_EPISODES)
+        print(f"knob --ensemble_fuse lane: seconds/episode {knob:.4f} vs the default's {eager_l:.4f} (eager lanes, "
+              f"same call): {knob / eager_l:.3f} x")
+        mark("5-shot eager lanes and the engine's knobs")
+        kernels.reset_launch_counts()
+        drive(torch, finetune, f"lane path with --freeze_backbone (--eval_batch {LANES})",
+              lane_argv + ["--freeze_backbone"], LANE_EPISODES)
+        counts_f = kernels.launch_counts()
+        print(f"--freeze_backbone lane batches' kernel launches: {counts_f} (nothing adapts: no scan)")
+        if counts_f["fused_inner_scan"] != 0 or counts_f["edge_abs_diff_matmul"] != 3 * batches:
+            fail(f"the frozen lane batches launched {counts_f}, not the edge kernel 3 times a batch and the scan never")
+        kernels.reset_launch_counts()
+        drive(torch, finetune_50, f"50-shot lane path (finetune_50 --eval_batch {LANES} --inner_scan fused)",
+              base + ["--eval_batch", str(LANES), "--inner_scan", "fused"], LANES)
+        counts_50l = kernels.launch_counts()
+        print(f"50-shot lane batch kernel launches: {counts_50l}")
+        for row in rows:
+            row["launches_lanes50"] = counts_50l[row["name"]]
+            if row["launches_lanes50"] == 0:
+                fail(f"kernel {row['name']} was never launched on the 50-shot lane path")
+        mark("lane evals: frozen, 50-shot")
+
     # 6. the training path at full width, then one eval episode from the checkpoints it wrote
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
         with open(os.path.join(save_dir, "paths.json"), "w") as f:
@@ -1966,7 +2219,9 @@ def main():
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
-             "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet"]
+             "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet",
+             "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_lanes50",
+             "ms_lanes50", "bound_ms_lanes50"]
     # keys of a path that a kernel off that path (or a number this run does not measure) leaves null
     print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

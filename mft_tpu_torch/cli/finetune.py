@@ -6,6 +6,11 @@ of ``--episode_manifest``): fan the support set out into ``gen_examples``
 augmented replicas (+ the triple clean copy), fine-tune the pretrained
 backbone's last block (``--bn_mode``), score with the requested head, and
 report mean accuracy +- 1.96*std/sqrt(n) (reference finetune.py:424-682).
+The episodes run in batches of ``--eval_batch`` lanes (the last batch may
+be short); each keeps its own generator, seeded by its index, so its answer
+does not depend on the batch.  Per-episode accuracies go to stdout and to
+``<save_dir>/eval_log.jsonl``; ``--episode_cache`` keeps the decoded
+episodes, ``--trace_dir`` writes a profiler trace.
 At ``--n_shot >= 50`` the GnnNet head is the compressed 50-shot variant
 (reference finetune_50.py, gnnnet_copy.py).  Checkpoints are the
 reference's ``<epoch>.tar`` state dicts (what ``mft_tpu.cli.export_ckpt``
@@ -47,14 +52,18 @@ from mft_tpu_torch.models import backbone as bb
 from mft_tpu_torch.ops.augment import center_batch
 from mft_tpu_torch.train import eval_engine as ee
 from mft_tpu_torch.utils import checkpoint as ckpt
+from mft_tpu_torch.utils.metrics import MetricLogger, profile_trace
 
 
 class EvalResult(NamedTuple):
     mean: float
     ci95: float
     accs: list
-    #: device seconds of each episode (host clock, synchronized)
+    #: seconds of each episode: its batch's seconds over the batch's lanes
     seconds: list
+    #: seconds of each batch (host clock around the synchronized batch)
+    batch_seconds: list
+    episodes_per_sec: float
 
 
 def _load(path, bcfg, device, need_head: bool):
@@ -164,10 +173,13 @@ def prepare_dampnet(a, paths, models, bcfg, device):
         print(f"unsup recovery stats from {a.unsupervised}")
 
 
-def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=None) -> EvalResult:
-    """The episode loop; prints each episode's accuracy."""
+def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=None, logger=None) -> EvalResult:
+    """The episode loop, ``--eval_batch`` episodes a batch; prints each
+    episode's accuracy (and logs it to ``logger``)."""
     tcfg = ee.TransferCfg(fine_tune_epochs=a.fine_tune_epoch, inner_param_dtype=a.inner_param_dtype,
-                           inner_scan=a.inner_scan, bn_mode=a.bn_mode)
+                           inner_scan=a.inner_scan, bn_mode=a.bn_mode, freeze_backbone=a.freeze_backbone,
+                           ensemble_fuse=a.ensemble_fuse, fanout_group_pass=a.fanout_group_pass,
+                           inner_gather=a.inner_gather, inner_carry=a.inner_carry)
     program = ee.make_eval_program(method=a.method, bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg,
                                    gen_examples=a.gen_examples, dcfg=dcfg, dampnet_eval=a.dampnet_eval)
     if a.episode_manifest:
@@ -176,20 +188,29 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=Non
         a.iter_num = len(stream)
         print(f"replaying {a.iter_num} recorded episodes from {a.episode_manifest}")
     else:
-        stream = EpisodeStream(manifest, spec, a.iter_num, base_size=a.base_size, seed=a.seed)
-    accs, seconds = [], []
-    for i, (images, _) in enumerate(stream):
-        gen = torch.Generator().manual_seed(a.seed * 1_000_003 + i)
+        stream = EpisodeStream(manifest, spec, a.iter_num, base_size=a.base_size, seed=a.seed,
+                               cache_dir=a.episode_cache)
+    accs, seconds, batch_seconds = [], [], []
+    episodes = iter(stream)
+    while len(accs) < a.iter_num:
+        done = len(accs)
+        images = np.stack([next(episodes)[0] for _ in range(min(a.eval_batch, a.iter_num - done))])
+        # one generator per episode, seeded by its index: the same draws at any --eval_batch
+        gens = [torch.Generator().manual_seed(a.seed * 1_000_003 + done + j) for j in range(len(images))]
         t0 = time.perf_counter()
-        base = torch.from_numpy(images).to(device).permute(0, 1, 4, 2, 3)  # NHWC -> NCHW
-        _, acc = program(models, base, gen)
+        base = torch.from_numpy(images).to(device).permute(0, 1, 2, 5, 3, 4)  # NHWC -> NCHW
+        _, batch_accs = program(models, base, gens)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        seconds.append(time.perf_counter() - t0)
-        accs.append(acc)
-        print(acc)  # per-episode accuracy (reference finetune.py:631)
+        batch_seconds.append(time.perf_counter() - t0)
+        seconds += [batch_seconds[-1] / len(images)] * len(images)
+        for j, acc in enumerate(batch_accs):
+            print(acc)  # per-episode accuracy (reference finetune.py:631)
+            if logger:
+                logger._write({"kind": "episode", "index": done + j, "acc": acc})
+        accs += batch_accs
     mean, ci = ee.mean_ci95(np.asarray(accs))
-    return EvalResult(mean, ci, accs, seconds)
+    return EvalResult(mean, ci, accs, seconds, batch_seconds, a.iter_num / sum(batch_seconds))
 
 
 def _refuse_unported(a):
@@ -199,7 +220,7 @@ def _refuse_unported(a):
     }
     asked = [k for k, v in unported.items() if v]
     if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)} (mft_tpu.cli.finetune has them)")
+        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
     if not a.method.startswith("dampnet") and (a.unsupervised or a.dampnet_eval != "finetune"):
         raise SystemExit("--unsupervised and --dampnet_eval apply to --method dampnet|dampnet_full|dampnet_full_class")
 
@@ -225,10 +246,13 @@ def main(argv=None) -> EvalResult:
     models = build_models(a, paths, bcfg, device, dcfg)
     if dcfg is not None:
         prepare_dampnet(a, paths, models, bcfg, device)
-    res = evaluate(a, models, manifest, aug_cfg=entry.eval_aug._replace(image_size=a.image_size), bcfg=bcfg,
-                   gcfg=gcfg, spec=spec, device=device, dcfg=dcfg)
+    logger = MetricLogger(jsonl_path=os.path.join(paths.save_dir, "eval_log.jsonl"))
+    with profile_trace(a.trace_dir):
+        res = evaluate(a, models, manifest, aug_cfg=entry.eval_aug._replace(image_size=a.image_size), bcfg=bcfg,
+                       gcfg=gcfg, spec=spec, device=device, dcfg=dcfg, logger=logger)
     print(a.test_dataset)
-    print("%d Test Acc = %4.2f%% +- %4.2f%%" % (a.iter_num, res.mean, res.ci95))
+    logger.log_eval(a.iter_num, res.mean, res.ci95, eps_per_sec=res.episodes_per_sec)  # the "N Test Acc" line
+    print(f"episodes/sec = {res.episodes_per_sec:.3f}")
     print(f"seconds/episode = {np.mean(res.seconds):.3f}")
     return res
 

@@ -243,7 +243,8 @@ def run_episodic(a, manifest, aug_cfg, bcfg, gcfg, spec, params, stats, tx, opt_
             stream = ReplayEpisodeStream(replay[lo : lo + a.episodes_per_epoch], spec, base_size=a.base_size,
                                          root=a.episode_manifest_root)
         else:
-            stream = EpisodeStream(manifest, spec, a.episodes_per_epoch, base_size=a.base_size, seed=a.seed + epoch)
+            stream = EpisodeStream(manifest, spec, a.episodes_per_epoch, base_size=a.base_size, seed=a.seed + epoch,
+                                   cache_dir=a.episode_cache)
         meter = AverageMeter()
         it = iter(stream)
         t_data = t_step = 0.0
@@ -296,7 +297,8 @@ def run_dampnet(a, manifest, aug_cfg, bcfg, dcfg, spec, params, stats, tx, opt_s
     step_index = 0
     n_steps = max(1, a.episodes_per_epoch // e_batch)
     for epoch in range(start_epoch, a.stop_epoch + 1):
-        stream = EpisodeStream(manifest, spec, a.episodes_per_epoch, base_size=a.base_size, seed=a.seed + epoch)
+        stream = EpisodeStream(manifest, spec, a.episodes_per_epoch, base_size=a.base_size, seed=a.seed + epoch,
+                               cache_dir=a.episode_cache)
         meter = AverageMeter()
         it = iter(stream)
         epoch_bank = []

@@ -1,11 +1,16 @@
 """Paths, checkpoint layout and the flag sets of the eval and training
 drivers (port of ``mft_tpu/config.py``; the logic is a copy, the flags are
-those of the JAX drivers that the port implements, plus ``--device``).
+those of the JAX drivers, plus ``--device`` and the eval's ``--inner_scan``).
 
-Only flags that the port acts on are defined, so argparse rejects the JAX
-drivers' others (eval: ``--freeze_backbone``, ``--eval_batch``; both:
-``--episode_cache``, ``--trace_dir``; training: the eval-only DampNet flags
-``--dampnet_eval``, ``--sweep_images`` and ``--unsupervised``).
+The eval driver takes every flag of ``mft_tpu.cli.finetune``, which parses
+the reference's training flag set too (finetune.py:426): those it parses and
+does not read.  It also sets the eval engine's four knobs
+(``--ensemble_fuse``, ``--fanout_group_pass``, ``--inner_gather``,
+``--inner_carry``), which the JAX package reads from environment variables
+in ``bench.py`` only.  The training driver takes the flags that
+``mft_tpu.cli.train`` reads; argparse rejects the eval-only ones
+(``--eval_batch``, ``--freeze_backbone``, ``--trace_dir``, the engine's
+knobs, the eval's episode and DampNet flags).
 """
 
 from __future__ import annotations
@@ -113,9 +118,40 @@ def parse_finetune_args(argv=None):
                     help="images of DampNet's prototype and --unsupervised sweeps; -1 = the whole dataset")
     ap.add_argument("--unsupervised", default="",
                     help="DampNet: recover from this unlabeled dataset's feature statistics (set_forward_unsup)")
+    ap.add_argument("--eval_batch", default=5, type=int,
+                    help="episodes evaluated together as lanes of one device batch (the JAX driver's default)")
+    ap.add_argument("--freeze_backbone", action="store_true",
+                    help="fine-tune nothing of the backbone and run it with its running BN statistics")
+    ap.add_argument("--episode_cache", default=None,
+                    help="directory of the decoded-episode uint8 cache: a repeated eval skips the image decode")
+    ap.add_argument("--trace_dir", default=None, help="write a torch.profiler Chrome trace of the eval here")
+    knobs = ap.add_argument_group(
+        "the eval engine's knobs (TransferCfg; the JAX package sets them through bench.py's BENCH_* variables); "
+        "each gives the numbers of its default, and chip_smoke.py times each against it")
+    knobs.add_argument("--ensemble_fuse", default="seq", choices=["seq", "lane"],
+                       help="--method all: run the members' eager inner loops back to back, or step them together")
+    knobs.add_argument("--fanout_group_pass", default=1, type=int,
+                       help="replica groups of the support bank stacked in one trunk pass (per-group BN statistics)")
+    knobs.add_argument("--inner_gather", default="step", choices=["step", "epoch"],
+                       help="eager inner loops: gather each minibatch's bank rows per step, or permute the bank once "
+                            "an epoch and slice it")
+    knobs.add_argument("--inner_carry", default="tree", choices=["tree", "flat"],
+                       help="eager inner loops: Adam on each leaf, or on one contiguous buffer per optimizer group")
+    train = ap.add_argument_group("the training flag set, parsed as the JAX eval driver parses it and not read")
+    train.add_argument("--fine_tune", action="store_true")
+    train.add_argument("--num_classes", default=200, type=int)
+    train.add_argument("--save_freq", default=50, type=int)
+    train.add_argument("--start_epoch", default=0, type=int)
+    train.add_argument("--stop_epoch", default=400, type=int)
+    train.add_argument("--episodes_per_epoch", default=100, type=int)
+    train.add_argument("--batch_size", default=16, type=int)
+    train.add_argument("--episode_batch", default=1, type=int)
     a = ap.parse_args(argv)
     if a.base_size <= 0:
         a.base_size = int(a.image_size * 1.15)
+    for flag in ("eval_batch", "fanout_group_pass"):
+        if getattr(a, flag) < 1:
+            ap.error(f"--{flag} must be at least 1, got {getattr(a, flag)}")
     return a
 
 
@@ -156,6 +192,9 @@ def parse_train_args(argv=None):
                     help="JSON of recorded episodes ({'episodes': [...]}) or, for --method baseline, batches "
                          "({'batches': [...]}) to replay instead of sampling")
     ap.add_argument("--episode_manifest_root", default=None, help="base directory of the manifest's relative paths")
+    ap.add_argument("--episode_cache", default=None,
+                    help="directory of the decoded-episode uint8 cache (keyed by the stream's seed, so a training "
+                         "run hits it only when the same epochs run again, as on a resume)")
     a = ap.parse_args(argv)
     if a.base_size <= 0:
         a.base_size = int(a.image_size * 1.15)

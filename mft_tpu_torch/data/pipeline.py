@@ -7,11 +7,15 @@ numpy arrays (the host layout); the eval moves them to the device and to
 NCHW.  File items are decoded with PIL, imported at first use; in-memory
 items (the synthetic and CIFAR datasets) need no decoder.  The JAX
 package's native libjpeg decoder is not ported in this slice.
+``EpisodeStream(cache_dir=...)`` keeps each decoded episode as a uint8
+``.npy`` under the JAX package's cache key, so a repeated eval skips the
+decode.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import hashlib
 import os
 
 import numpy as np
@@ -60,22 +64,55 @@ def _decode_many(items, base_size: int, pool: cf.Executor) -> np.ndarray:
     return np.stack(list(pool.map(lambda it: decode_image(it, base_size), items)))
 
 
+def cache_key(manifest: Manifest, spec: EpisodeSpec, n: int, seed: int, base_size: int) -> str:
+    """The decoded-episode cache's content key (JAX ``EpisodeStream._cache_key``):
+    any change to the file list (or in-memory array content), labels,
+    episode geometry, seed or decode resolution invalidates the cache.  The
+    port always decodes in JPEG draft mode, the JAX package's default."""
+    h = hashlib.sha1()
+    for it in manifest.items:
+        h.update(np.ascontiguousarray(it).tobytes() if isinstance(it, np.ndarray) else str(it).encode())
+    h.update(np.asarray(manifest.labels).tobytes())
+    h.update(f"|{spec}|{n}|{seed}|{base_size}|draft=1".encode())
+    return h.hexdigest()[:20]
+
+
 class EpisodeStream:
     """Iterates decoded episodes ``(images, classes)``; a thread pool decodes
-    and the next ``PREFETCH`` episodes load while the device works."""
+    and the next ``PREFETCH`` episodes load while the device works.
+
+    ``cache_dir``: each decoded episode is kept as ``<cache_dir>/<key>/
+    epNNNNN.npy`` (:func:`cache_key`) and read back on the next run instead
+    of decoded; writes are atomic (temporary file, then rename) and a partly
+    written cache is resumed episode by episode (mft_tpu/data/pipeline.py:95-198)."""
 
     def __init__(self, manifest: Manifest, spec: EpisodeSpec, n_episodes: int, *, base_size: int = 256,
-                 seed: int = 10):
+                 seed: int = 10, cache_dir: str | None = None):
         self.manifest = manifest
         self.spec = spec
         self.base_size = base_size
         self.sampler = EpisodicSampler(manifest.by_class(), spec, n_episodes, seed=seed)
+        self.cache_path = None
+        if cache_dir:
+            self.cache_path = os.path.join(cache_dir, cache_key(manifest, spec, n_episodes, seed, base_size))
+            os.makedirs(self.cache_path, exist_ok=True)
 
     def _load(self, i: int, pool: cf.Executor):
         ep = self.sampler.episode(i)
+        if self.cache_path is not None:
+            f = os.path.join(self.cache_path, f"ep{i:05d}.npy")
+            if os.path.exists(f):
+                try:
+                    return np.load(f), ep.classes
+                except (OSError, ValueError):
+                    pass  # a torn write of a crashed run: decode again
         items = [self.manifest.items[j] for j in ep.items.reshape(-1)]
         images = _decode_many(items, self.base_size, pool).reshape(
             self.spec.n_way, self.spec.n_per_class, self.base_size, self.base_size, 3)
+        if self.cache_path is not None:
+            tmp = f"{f}.{os.getpid()}.tmp.npy"
+            np.save(tmp, images)
+            os.replace(tmp, f)
         return images, ep.classes
 
     def __len__(self):

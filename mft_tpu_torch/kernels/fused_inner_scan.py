@@ -96,39 +96,51 @@ def param_shapes(geom: BlockGeom) -> dict:
 def block_to_flat(block: dict) -> dict:
     """The port's final-block tree (OIHW conv weights, ``bn*`` dicts) ->
     flat dict: conv weights as ``[kh*kw*ci, co]`` (OIHW -> HWIO, flattened),
-    BN vectors as ``[1, C]``."""
-    mat = lambda w: w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).contiguous()
+    BN vectors as ``[1, C]``.  Leading lane dims (``[L, O, I, kh, kw]``)
+    stay leading."""
+    def mat(w):
+        n = w.dim() - 4
+        return w.permute(*range(n), n + 2, n + 3, n + 1, n).reshape(tuple(w.shape[:n]) + (-1, w.shape[n])).contiguous()
+
+    vec = lambda v: v.unsqueeze(-2)
     return {
         "conv1": mat(block["conv1"]),
-        "bn1_s": block["bn1"]["scale"][None, :],
-        "bn1_b": block["bn1"]["bias"][None, :],
+        "bn1_s": vec(block["bn1"]["scale"]),
+        "bn1_b": vec(block["bn1"]["bias"]),
         "conv2": mat(block["conv2"]),
-        "bn2_s": block["bn2"]["scale"][None, :],
-        "bn2_b": block["bn2"]["bias"][None, :],
+        "bn2_s": vec(block["bn2"]["scale"]),
+        "bn2_b": vec(block["bn2"]["bias"]),
         "conv_sc": mat(block["conv_sc"]),
-        "bnsc_s": block["bn_sc"]["scale"][None, :],
-        "bnsc_b": block["bn_sc"]["bias"][None, :],
+        "bnsc_s": vec(block["bn_sc"]["scale"]),
+        "bnsc_b": vec(block["bn_sc"]["bias"]),
     }
 
 
 def flat_to_block(flat: dict, geom: BlockGeom) -> dict:
-    """Inverse of :func:`block_to_flat`: back to OIHW and ``[C]`` vectors."""
+    """Inverse of :func:`block_to_flat`: back to OIHW and ``[C]`` vectors
+    (leading lane dims kept)."""
     ci, co = geom.c_in, geom.c_out
-    oihw = lambda m, k, c: m.reshape(k, k, c, co).permute(3, 2, 0, 1).contiguous()
+
+    def oihw(m, k, c):
+        lead = tuple(m.shape[:-2])
+        n = len(lead)
+        return m.reshape(lead + (k, k, c, co)).permute(*range(n), n + 3, n + 2, n, n + 1).contiguous()
+
+    vec = lambda v: v.squeeze(-2)
     return {
         "conv1": oihw(flat["conv1"], 3, ci),
-        "bn1": {"scale": flat["bn1_s"][0], "bias": flat["bn1_b"][0]},
+        "bn1": {"scale": vec(flat["bn1_s"]), "bias": vec(flat["bn1_b"])},
         "conv2": oihw(flat["conv2"], 3, co),
-        "bn2": {"scale": flat["bn2_s"][0], "bias": flat["bn2_b"][0]},
+        "bn2": {"scale": vec(flat["bn2_s"]), "bias": vec(flat["bn2_b"])},
         "conv_sc": oihw(flat["conv_sc"], 1, ci),
-        "bn_sc": {"scale": flat["bnsc_s"][0], "bias": flat["bnsc_b"][0]},
+        "bn_sc": {"scale": vec(flat["bnsc_s"]), "bias": vec(flat["bnsc_b"])},
     }
 
 
 def bank_to_nhwc(fmap_bank: torch.Tensor) -> torch.Tensor:
-    """The eval's NCHW feature bank ``[span, Ci, H, H]`` -> ``[span, H, H, Ci]``
-    contiguous (one copy per episode)."""
-    return fmap_bank.permute(0, 2, 3, 1).contiguous()
+    """The eval's NCHW feature bank ``[..., span, Ci, H, H]`` -> ``[...,
+    span, H, H, Ci]`` contiguous (one copy per call)."""
+    return fmap_bank.movedim(-3, -1).contiguous()
 
 
 # --------------------------------------------------------------------------

@@ -53,38 +53,45 @@ def init_head(gen: torch.Generator, cfg: GnnNetCfg, **kw) -> dict:
     }
 
 
-def project(head: dict, z_flat: torch.Tensor) -> torch.Tensor:
-    """Linear + batch-stats BN over all episode rows (gnnnet.py:30,53)."""
+def project(head: dict, z_flat: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """Linear + batch-stats BN over all episode rows (gnnnet.py:30,53);
+    ``groups``: that many episodes' rows, each with its own statistics."""
     h = linear(z_flat, head["fc"]["linear"])
-    return batch_norm(h, head["fc"]["bn"], None, use_batch_stats=True)[0]
+    return batch_norm(h, head["fc"]["bn"], None, use_batch_stats=True, groups=groups)[0]
 
 
 def gnn_scores(head: dict, z_episode: torch.Tensor, cfg: GnnNetCfg, n_query: int, z_transform=None) -> torch.Tensor:
     """z_episode ``[n_way, n_support + n_query, feat]`` (support first) ->
-    scores ``[n_way * n_query, n_way]`` (class-major).  ``z_transform``: an
-    optional hook on the projected ``[n_way, slots, proj]`` tensor before
-    the graph build (the DampNet prototype variant mean-centers and
-    L2-normalizes there, reference methods/dampnet.py:125-129)."""
-    n_way, slots, _ = z_episode.shape
+    scores ``[n_way * n_query, n_way]`` (class-major); ``[E, n_way, s+q,
+    feat]`` (E episode lanes) -> ``[E, n_way * n_query, n_way]``, the lanes'
+    ``E * n_query`` graphs in one GNN pass (one edge-kernel call per
+    ``Wcompute``) with per-episode BN statistics.  ``z_transform``: an
+    optional hook on each episode's projected ``[n_way, slots, proj]``
+    tensor before the graph build (the DampNet prototype variant
+    mean-centers and L2-normalizes there, reference methods/dampnet.py:125-129)."""
+    lanes = z_episode.dim() == 4
+    z_e = z_episode if lanes else z_episode[None]
+    e, n_way, slots, _ = z_e.shape
     if n_way != cfg.n_way or slots != cfg.n_support + n_query:
         raise ValueError(f"episode features {tuple(z_episode.shape)} do not match {cfg} with n_query={n_query}")
-    z = project(head, z_episode.reshape(n_way * slots, -1)).reshape(n_way, slots, cfg.proj_dim)
+    z = project(head, z_e.reshape(e * n_way * slots, -1), groups=e).reshape(e, n_way, slots, cfg.proj_dim)
     if z_transform is not None:
-        z = z_transform(z)
-    zs = z[:, : cfg.n_support]
+        z = torch.stack([z_transform(zl) for zl in z])
+    zs = z[:, :, : cfg.n_support]
     if cfg.support_compress > 1:
-        zs = zs.reshape(n_way, cfg.support_compress, cfg.eff_support, cfg.proj_dim).mean(dim=1)
-    zq = z[:, cfg.n_support :]  # [n_way, n_query, proj]
+        zs = zs.reshape(e, n_way, cfg.support_compress, cfg.eff_support, cfg.proj_dim).mean(dim=2)
+    zq = z[:, :, cfg.n_support :]  # [E, n_way, n_query, proj]
     s1 = cfg.eff_support + 1
     labels = support_onehot_with_query_slot(cfg.graph_spec, z.dtype, z.device)  # [n_way*s1, n_way]
-    # per query q: class k's supports then q itself -> [n_query, n_way, s1, proj]
+    # per query q: class k's supports then q itself -> [E, n_query, n_way, s1, proj]
     nodes = torch.cat(
-        [zs[None].expand(n_query, -1, -1, -1), zq.transpose(0, 1)[:, :, None, :]], dim=2
-    ).reshape(n_query, n_way * s1, cfg.proj_dim)
-    graphs = torch.cat([nodes, labels[None].expand(n_query, -1, -1)], dim=2)
-    out = apply_gnn(head["gnn"], graphs, cfg.use_pallas)  # [n_query, N, n_way]
-    out = out.reshape(n_query, n_way, s1, n_way)[:, :, -1]
-    return out.transpose(0, 1).reshape(n_way * n_query, n_way)
+        [zs[:, None].expand(-1, n_query, -1, -1, -1), zq.transpose(1, 2)[:, :, :, None, :]], dim=3
+    ).reshape(e * n_query, n_way * s1, cfg.proj_dim)
+    graphs = torch.cat([nodes, labels[None].expand(e * n_query, -1, -1)], dim=2)
+    out = apply_gnn(head["gnn"], graphs, cfg.use_pallas, bn_groups=e)  # [E*n_query, N, n_way]
+    out = out.reshape(e, n_query, n_way, s1, n_way)[:, :, :, -1]
+    out = out.transpose(1, 2).reshape(e, n_way * n_query, n_way)
+    return out if lanes else out[0]
 
 
 def gnnnet_loss(scores: torch.Tensor, n_way: int, n_query: int) -> torch.Tensor:

@@ -16,13 +16,16 @@ from mft_tpu_torch.methods.baseline import ce_loss
 
 def proto_scores(z_support: torch.Tensor, z_query: torch.Tensor, spec: EpisodeSpec) -> torch.Tensor:
     """z_support ``[n_way, n_support, F]``, z_query ``[n_way, n_query, F]``
-    -> scores ``[n_way * n_query, n_way] = -||q - proto||^2``."""
-    protos = z_support.mean(dim=1)
-    q = z_query.reshape(spec.n_way * spec.n_query, -1)
-    q2 = q.square().sum(dim=1, keepdim=True)
-    p2 = protos.square().sum(dim=1)[None, :]
+    -> scores ``[n_way * n_query, n_way] = -||q - proto||^2``; with a
+    leading ``[E]`` (episode lanes) on both, ``[E, n_way * n_query, n_way]``
+    from one batched product."""
+    lead = tuple(z_query.shape[:-3])
+    protos = z_support.mean(dim=-2)
+    q = z_query.reshape(lead + (spec.n_way * spec.n_query, -1))
+    q2 = q.square().sum(dim=-1, keepdim=True)
+    p2 = protos.square().sum(dim=-1).unsqueeze(-2)
     acc = torch.promote_types(q.dtype, torch.float32)
-    qp = torch.matmul(q.to(acc), protos.to(acc).t()).to(q.dtype)
+    qp = torch.matmul(q.to(acc), protos.to(acc).transpose(-1, -2)).to(q.dtype)
     return -(q2 + p2 - 2.0 * qp)
 
 

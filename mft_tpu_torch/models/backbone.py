@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import _pytree as pytree
 
 from mft_tpu_torch.ops.convpool import conv2d, global_avg_pool, max_pool
 from mft_tpu_torch.ops.initializers import bn_params, bn_stats, conv_fanin_normal
@@ -77,12 +78,14 @@ class BNCtx(NamedTuple):
     update_stats: bool
     momentum: float
     sample_mask: Optional[torch.Tensor]
+    #: >1: batch statistics per contiguous group of N/groups rows (ops/norm.py)
+    groups: int = 1
 
 
 def _bn(x, p, s, ctx: BNCtx):
     return batch_norm(
         x, p, s, use_batch_stats=ctx.use_batch_stats, update_stats=ctx.update_stats,
-        momentum=ctx.momentum, sample_mask=ctx.sample_mask,
+        momentum=ctx.momentum, sample_mask=ctx.sample_mask, groups=ctx.groups,
     )
 
 
@@ -90,17 +93,18 @@ def _cd(cfg: ResNetCfg):
     return None if cfg.compute_dtype == "float32" else getattr(torch, cfg.compute_dtype)
 
 
-def _apply_block(p, s, x, half_res: bool, ctx: BNCtx, cd=None):
-    """SimpleBlock (reference backbone.py:216-261) -> ``(y, new_stats)``."""
+def _apply_block(p, s, x, half_res: bool, ctx: BNCtx, cd=None, conv_groups: int = 1):
+    """SimpleBlock (reference backbone.py:216-261) -> ``(y, new_stats)``.
+    ``conv_groups``: grouped convs (:func:`apply_final_block_lanes`)."""
     stride = 2 if half_res else 1
-    out = conv2d(x, p["conv1"], stride=stride, padding=1, compute_dtype=cd)
+    out = conv2d(x, p["conv1"], stride=stride, padding=1, compute_dtype=cd, groups=conv_groups)
     out, s1 = _bn(out, p["bn1"], s["bn1"], ctx)
     out = torch.relu(out)
-    out = conv2d(out, p["conv2"], stride=1, padding=1, compute_dtype=cd)
+    out = conv2d(out, p["conv2"], stride=1, padding=1, compute_dtype=cd, groups=conv_groups)
     out, s2 = _bn(out, p["bn2"], s["bn2"], ctx)
     new_s = {"bn1": s1, "bn2": s2}
     if "conv_sc" in p:
-        short = conv2d(x, p["conv_sc"], stride=stride, padding=0, compute_dtype=cd)
+        short = conv2d(x, p["conv_sc"], stride=stride, padding=0, compute_dtype=cd, groups=conv_groups)
         short, new_s["bn_sc"] = _bn(short, p["bn_sc"], s["bn_sc"], ctx)
     else:
         short = x
@@ -115,14 +119,15 @@ def _stem(params, stats, x, ctx: BNCtx, cd):
 
 def apply_backbone(params, stats, x: torch.Tensor, *, cfg: ResNetCfg, train: bool,
                    update_stats: bool = False, momentum: float = 0.1,
-                   sample_mask: Optional[torch.Tensor] = None):
+                   sample_mask: Optional[torch.Tensor] = None, bn_groups: int = 1):
     """``x [N, 3, H, W]`` -> ``(features [N, feat_dim], new_stats)``.
 
     ``train=True``: batch statistics (with ``sample_mask`` folded in) and,
     with ``update_stats``, running-stat updates; ``train=False``: running
-    statistics."""
+    statistics.  ``bn_groups > 1``: ``x`` stacks that many groups (the
+    eval's episode lanes) and every BN takes statistics per group."""
     cd = _cd(cfg)
-    ctx = BNCtx(train, train and update_stats, momentum, sample_mask)
+    ctx = BNCtx(train, train and update_stats, momentum, sample_mask, bn_groups)
     new_stats = {"stages": [list(s) for s in stats["stages"]]}
     x, new_stats["stem_bn"] = _stem(params, stats, x, ctx, cd)
     for i, n in enumerate(cfg.stage_sizes):
@@ -135,12 +140,14 @@ def apply_backbone(params, stats, x: torch.Tensor, *, cfg: ResNetCfg, train: boo
 
 
 def apply_trunk(params, stats, x: torch.Tensor, *, cfg: ResNetCfg, train: bool,
-                sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                sample_mask: Optional[torch.Tensor] = None, bn_groups: int = 1) -> torch.Tensor:
     """Stem + every residual block except the final one -> feature map.
     The frozen half of the adaptation split: its output is computed once
-    per support bank instead of once per inner minibatch."""
+    per support bank instead of once per inner minibatch.  ``bn_groups >
+    1``: ``x`` stacks that many groups (replica groups, episode lanes), each
+    with its own BN statistics (JAX ``apply_trunk``'s ``bn_groups``)."""
     cd = _cd(cfg)
-    ctx = BNCtx(train, False, 0.1, sample_mask)
+    ctx = BNCtx(train, False, 0.1, sample_mask, bn_groups)
     x, _ = _stem(params, stats, x, ctx, cd)
     last = len(cfg.stage_sizes) - 1
     for i, n in enumerate(cfg.stage_sizes):
@@ -160,6 +167,28 @@ def apply_final_block(block_params, block_stats, fmap: torch.Tensor, *, cfg: Res
     half_res = len(cfg.stage_sizes) > 1 and cfg.stage_sizes[-1] == 1
     out, _ = _apply_block(block_params, block_stats, fmap, half_res, ctx, _cd(cfg))
     return global_avg_pool(out) if cfg.flatten else out
+
+
+def apply_final_block_lanes(block_params, block_stats, fmap: torch.Tensor, *, cfg: ResNetCfg, train: bool,
+                            sample_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`apply_final_block` for ``L`` episode lanes in one call: every
+    leaf of ``block_params`` carries a leading ``[L]``, ``fmap [L, B, C, H,
+    W]`` -> ``[L, B, feat]`` (``flatten``).  The lanes are stacked on the
+    channel axis, ``[B, L*C, H, W]``, so each conv is one grouped conv and
+    each BN one call whose ``L*C`` channels are the lanes' own (batch
+    statistics per lane, ``sample_mask [B]`` shared); ``block_stats`` (the
+    running statistics of ``train=False``) are shared by the lanes."""
+    lanes, b = fmap.shape[:2]
+    x = fmap.transpose(0, 1).reshape((b, -1) + tuple(fmap.shape[3:]))
+    p = pytree.tree_map(lambda t: t.reshape((-1,) + tuple(t.shape[2:])), block_params)  # [L, O, ...] -> [L*O, ...]
+    s = pytree.tree_map(lambda t: t.repeat(lanes), block_stats)
+    ctx = BNCtx(train, False, 0.1, sample_mask)
+    half_res = len(cfg.stage_sizes) > 1 and cfg.stage_sizes[-1] == 1
+    out, _ = _apply_block(p, s, x, half_res, ctx, _cd(cfg), conv_groups=lanes)
+    out = out.reshape((b, lanes, -1) + tuple(out.shape[2:])).transpose(0, 1)  # [L, B, C', h, w]
+    if not cfg.flatten:
+        return out
+    return global_avg_pool(out.reshape((lanes * b,) + tuple(out.shape[2:]))).reshape(lanes, b, -1)
 
 
 def adapt_split(tree):

@@ -152,15 +152,21 @@ def apply_enhance(img: torch.Tensor, r_b, r_c, r_s) -> torch.Tensor:
     return torch.clamp(gray + (img - gray) * r_s, 0.0, 1.0)
 
 
-def augment_batch(gen: torch.Generator, images: torch.Tensor, cfg: AugmentCfg, dtype=torch.float32) -> torch.Tensor:
-    """Independent augmented, normalized views of ``[..., 3, H0, W0]``
-    (uint8 or float).  Nine uniforms per image are drawn from ``gen`` (on
-    the CPU): crop box (4), jitter (3), flips (2)."""
+def augment_draws(gen: torch.Generator, m: int) -> torch.Tensor:
+    """The nine uniforms of each of ``m`` images, ``[m, 9]`` f32, drawn from
+    ``gen`` on the CPU: crop box (4), jitter (3), flips (2)."""
+    return torch.rand((m, 9), generator=gen)
+
+
+def augment_with_draws(images: torch.Tensor, u: torch.Tensor, cfg: AugmentCfg, dtype=torch.float32) -> torch.Tensor:
+    """Augmented, normalized views of ``[..., 3, H0, W0]`` (uint8 or float)
+    at explicit draws ``u [M, 9]`` (:func:`augment_draws`), one row per
+    image in the flattened leading order."""
     images = to_float(images, dtype)
     lead = images.shape[:-3]
     flat = images.reshape((-1,) + tuple(images.shape[-3:]))
-    m, h, w = flat.shape[0], flat.shape[-2], flat.shape[-1]
-    u = torch.rand((m, 9), generator=gen).to(images.device)
+    h, w = flat.shape[-2], flat.shape[-1]
+    u = u.to(images.device)
     top, left, ch, cw = _sample_crop(u[:, :4], h, w, cfg)
     flip_h = u[:, 7] < 0.5 if cfg.hflip else None
     flip_v = u[:, 8] < 0.5 if cfg.vflip else None
@@ -169,6 +175,21 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor, cfg: AugmentCfg, d
     r = alphas * (2.0 * u[:, 4:7] - 1.0) + 1.0
     out = normalize(apply_enhance(img, r[:, 0], r[:, 1], r[:, 2]))
     return out.reshape(lead + tuple(out.shape[1:]))
+
+
+def augment_batch(gen: torch.Generator, images: torch.Tensor, cfg: AugmentCfg, dtype=torch.float32) -> torch.Tensor:
+    """Independent augmented, normalized views of ``[..., 3, H0, W0]``
+    (uint8 or float), nine uniforms per image drawn from ``gen``."""
+    m = math.prod(images.shape[:-3])
+    return augment_with_draws(images, augment_draws(gen, m), cfg, dtype)
+
+
+def augment_lanes(gens, images: torch.Tensor, cfg: AugmentCfg, dtype=torch.float32) -> torch.Tensor:
+    """:func:`augment_batch` of ``L`` episode lanes in one warp:
+    ``images [L, ...]``, lane ``l``'s draws from ``gens[l]``, each lane
+    drawing what :func:`augment_batch` draws for it alone."""
+    m = math.prod(images.shape[1:-3])
+    return augment_with_draws(images, torch.cat([augment_draws(g, m) for g in gens]), cfg, dtype)
 
 
 def center_view(images: torch.Tensor, size: int) -> torch.Tensor:

@@ -12,13 +12,15 @@ import torch
 import torch.nn.functional as F
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0, compute_dtype=None) -> torch.Tensor:
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: int = 0, compute_dtype=None,
+           groups: int = 1) -> torch.Tensor:
     """2-D convolution, square stride/padding, no bias.  ``w`` is OIHW.
 
     ``compute_dtype`` (e.g. ``torch.bfloat16``) sets the operand and output
-    dtype; ``None`` keeps the input dtype."""
+    dtype; ``None`` keeps the input dtype.  ``groups``: a grouped conv (the
+    eval's episode lanes stacked on the channel axis)."""
     cd = compute_dtype if compute_dtype is not None else x.dtype
-    return F.conv2d(x.to(cd), w.to(cd), stride=stride, padding=padding)
+    return F.conv2d(x.to(cd), w.to(cd), stride=stride, padding=padding, groups=groups)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:

@@ -5,6 +5,9 @@ and outputs and nothing mutates a module buffer.  Statistics are taken in
 >= f32 with the biased variance; ``sample_mask`` weighs rows along axis 0
 (masked rows still pass through the layer but count 0 in the moments), which
 is how the inner loop's ragged last minibatch keeps static shapes.
+``groups`` takes batch statistics per contiguous group of leading rows: the
+eval's episode lanes (and replica groups) share one call and keep their own
+statistics.
 """
 
 from __future__ import annotations
@@ -50,9 +53,15 @@ def batch_norm(
     sample_mask: Optional[torch.Tensor] = None,
     eps: float = EPS,
     channel_dim: int = 1,
+    groups: int = 1,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Normalize over every dim but ``channel_dim`` (1 for NCHW and
     ``[N, C]``; -1 for the GNN's channels-last edge tensor).
+
+    ``groups > 1``: batch statistics per contiguous group of ``N / groups``
+    rows along dim 0, equal to separate calls on the groups (JAX
+    ``ops/norm.py`` ``groups``); batch statistics only, with no running-stat
+    update and no mask, as there.
 
     Returns ``(y, new_stats)``; ``new_stats`` is ``stats`` unless
     ``use_batch_stats and update_stats``, where the running update uses the
@@ -64,7 +73,20 @@ def batch_norm(
     reduce_dims = tuple(d for d in range(x.ndim) if d != cd)
     bshape = [1] * x.ndim
     bshape[cd] = x.shape[cd]
-    if use_batch_stats:
+    shape = x.shape
+    if groups > 1:
+        if not use_batch_stats or update_stats or sample_mask is not None:
+            raise ValueError("grouped BN takes batch statistics only, with no running-stat update and no mask")
+        if x.shape[0] % groups:
+            raise ValueError(f"{x.shape[0]} rows do not split into {groups} groups")
+        # [G, N/G, ...]: the moments over every dim but the group and channel ones
+        x = x.reshape((groups, x.shape[0] // groups) + tuple(x.shape[1:]))
+        red = tuple(d + 1 for d in reduce_dims)
+        mean = x.mean(dim=red, keepdim=True)
+        var = (x - mean).square().mean(dim=red, keepdim=True)
+        bshape = [1] + bshape
+        new_stats = stats
+    elif use_batch_stats:
         mean, var, count = _masked_moments(x, reduce_dims, sample_mask)
         new_stats = stats
         if update_stats and stats is not None:
@@ -86,4 +108,4 @@ def batch_norm(
     scale = params["scale"].to(x.dtype).reshape(bshape)
     bias = params["bias"].to(x.dtype).reshape(bshape)
     y = (x - mean) * (inv * scale) + bias
-    return y.to(in_dtype), new_stats
+    return y.reshape(shape).to(in_dtype), new_stats

@@ -1,10 +1,13 @@
-"""Training log (a copy of ``AverageMeter`` and ``MetricLogger`` from
+"""Run logs (a copy of ``AverageMeter`` and ``MetricLogger`` from
 ``mft_tpu/utils/metrics.py``): the reference's stdout lines and the same
-``train_log.jsonl`` records, so ``tools/run_reference_train_e2e.py``'s
-``parse_losses`` reads the port's log as it reads the JAX driver's."""
+``train_log.jsonl`` / ``eval_log.jsonl`` records, so
+``tools/run_reference_train_e2e.py``'s ``parse_losses`` reads the port's log
+as it reads the JAX driver's; and :func:`profile_trace`, the eval's
+``--trace_dir``."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from dataclasses import dataclass
@@ -52,3 +55,22 @@ class MetricLogger:
             os.makedirs(os.path.dirname(self.jsonl_path) or ".", exist_ok=True)
             with open(self.jsonl_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
+
+
+@contextlib.contextmanager
+def profile_trace(trace_dir: Optional[str]):
+    """A ``torch.profiler`` trace of the block (host, and the card's kernels
+    when CUDA is available) written as a Chrome trace to
+    ``<trace_dir>/trace_<pid>.json``; a no-op without ``trace_dir`` (the
+    counterpart of JAX ``metrics.py``'s ``jax.profiler`` context)."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}.json"))

@@ -436,9 +436,9 @@ def test_member_compositions_on_the_program():
         program = tee.make_eval_program(method="dampnet_full_class", bcfg=TCFG, gcfg=None, spec=spec, tcfg=tcfg,
                                         aug_cfg=taug.AugmentCfg(image_size=32), gen_examples=1, dcfg=tc,
                                         dampnet_eval=eval_mode)
-        scores, acc = program({"dampnet": (fp, fs, dp, ds), **extra}, base, torch.Generator().manual_seed(1))
-        assert tuple(scores.shape) == (6, 3) and torch.isfinite(scores).all() and 0.0 <= acc <= 100.0
-        np.testing.assert_allclose(scores.sum(1).numpy(), np.full(6, total), rtol=1e-5)
+        scores, accs = program({"dampnet": (fp, fs, dp, ds), **extra}, base[None], [torch.Generator().manual_seed(1)])
+        assert tuple(scores.shape) == (1, 6, 3) and torch.isfinite(scores).all() and 0.0 <= accs[0] <= 100.0
+        np.testing.assert_allclose(scores[0].sum(1).numpy(), np.full(6, total), rtol=1e-5)
 
 
 # --------------------------------------------------------------------------

@@ -185,10 +185,10 @@ def _scores_spy():
     def spy(**kw):
         program = make(**kw)
 
-        def run(models, base, gen):
-            scores, acc = program(models, base, gen)
-            seen.append(scores)
-            return scores, acc
+        def run(models, base, gens):
+            scores, accs = program(models, base, gens)
+            seen.extend(scores)
+            return scores, accs
 
         return run
 

@@ -85,12 +85,18 @@ def test_checkpoint_dir_and_paths_match(method, kw):
 
 def test_finetune_flag_defaults_match():
     """The port's eval flags keep the JAX driver's defaults (bf16 fast path
-    included) and add only ``--device`` and ``--inner_scan`` (which kernel
+    included) and add only ``--device``, ``--inner_scan`` (which kernel
     path runs the GNN member's inner loop; the JAX package never wired its
-    fused scan into an entry point)."""
+    fused scan into an entry point) and the eval engine's four knobs, whose
+    defaults are the JAX ``TransferCfg``'s (the JAX package sets them
+    through ``bench.py``'s environment variables only)."""
+    from mft_tpu.train import eval_engine as jee
+
     t = vars(tcfg.parse_finetune_args([]))
     j = vars(jcfg.parse_args("train", [], overrides={"dtype": "bfloat16", "inner_param_dtype": "bfloat16"}))
     assert t.pop("device") == "cuda"
     assert t.pop("inner_scan") == "eager"
+    for knob in ("ensemble_fuse", "fanout_group_pass", "inner_gather", "inner_carry"):
+        assert knob not in j and t.pop(knob) == getattr(jee.TransferCfg(), knob), knob
     for k, v in t.items():
         assert k in j and j[k] == v, k

@@ -320,9 +320,9 @@ def test_eval_program_minibatch_mode_runs(method):
     program = tee.make_eval_program(method=method, bcfg=TCFG, gcfg=gcfg, spec=spec, tcfg=tcfg,
                                     aug_cfg=taug.AugmentCfg(image_size=16), gen_examples=1)
     base = torch.randint(0, 256, (3, 4, 3, 18, 18), dtype=torch.uint8, generator=gen)
-    scores, acc = program(models, base, torch.Generator().manual_seed(1))
-    assert tuple(scores.shape) == (6, 3) and torch.isfinite(scores).all() and 0.0 <= acc <= 100.0
-    np.testing.assert_allclose(scores.sum(1).numpy(), np.full(6, 2.0 if method == "all" else 1.0), rtol=1e-5)
+    scores, accs = program(models, base[None], [torch.Generator().manual_seed(1)])
+    assert tuple(scores.shape) == (1, 6, 3) and torch.isfinite(scores).all() and 0.0 <= accs[0] <= 100.0
+    np.testing.assert_allclose(scores[0].sum(1).numpy(), np.full(6, 2.0 if method == "all" else 1.0), rtol=1e-5)
 
 
 def test_fused_scan_refused_in_minibatch_mode():

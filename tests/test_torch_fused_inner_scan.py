@@ -415,11 +415,11 @@ def test_gnn_member_fused_matches_eager_and_jax(episode):
     normwise (DRIFT), not elementwise, so the softmax scores are held to
     atol 2e-2 with the same argmax (measured: about 3e-3)."""
     eager = _port_gnn_scores(episode, "eager")
-    with mock.patch.object(tfis, "fused_inner_scan", wraps=tfis.fused_inner_scan) as spy:
+    with mock.patch.object(tfis, "fused_inner_scan_lanes", wraps=tfis.fused_inner_scan_lanes) as spy:
         fused = _port_gnn_scores(episode, "fused")
     assert spy.call_count == 1
     geom = spy.call_args.kwargs["geom"]
-    assert geom == tfis.BlockGeom(SIZE // 16, 256, 512, 2, 5) and spy.call_args.args[3].shape == (8, 5)
+    assert geom == tfis.BlockGeom(SIZE // 16, 256, 512, 2, 5) and spy.call_args.args[3].shape == (1, 8, 5)
     assert fused.shape == (6, 3) and np.isfinite(fused).all()
     np.testing.assert_allclose(fused, eager, atol=2e-2)
     np.testing.assert_array_equal(fused.argmax(1), eager.argmax(1))
@@ -461,9 +461,9 @@ def test_eval_program_method_all_fused_matches_eager(episode):
                                         gcfg=tgn.GnnNetCfg(feat_dim=512, n_way=3, n_support=2, use_pallas=True),
                                         aug_cfg=taug.AugmentCfg(image_size=SIZE))
         gen = torch.Generator().manual_seed(5)
-        scores, acc = program(models, base, gen)
-        out[mode], after[mode] = scores.numpy(), torch.rand(1, generator=gen).item()
-        assert 0.0 <= acc <= 100.0
+        scores, accs = program(models, base[None], [gen])
+        out[mode], after[mode] = scores[0].numpy(), torch.rand(1, generator=gen).item()
+        assert 0.0 <= accs[0] <= 100.0
     assert after["eager"] == after["fused"]  # the same draws were consumed
     np.testing.assert_allclose(out["fused"], out["eager"], atol=2e-2)
     np.testing.assert_array_equal(out["fused"].argmax(1), out["eager"].argmax(1))
@@ -478,7 +478,7 @@ def test_fused_refusals_and_the_linear_member(episode):
     spec = tep.EpisodeSpec(*SPEC)
     base = torch.from_numpy(episode["base"]).permute(0, 1, 4, 2, 3)
     scores = {}
-    with mock.patch.object(tfis, "fused_inner_scan", side_effect=AssertionError("the linear member must stay eager")):
+    with mock.patch.object(tfis, "fused_inner_scan_lanes", side_effect=AssertionError("the linear member must stay eager")):
         for mode in ("eager", "fused"):
             tcfg = tee.TransferCfg(fine_tune_epochs=1, linear_epochs=1, inner_scan=mode)
             scores[mode] = tee.linear_member_scores(
@@ -506,12 +506,12 @@ def test_cli_inner_scan_flag(tmp_path, capsys):
     pj = chip_smoke.write_checkpoints(torch, str(tmp_path))
     argv = ["--device", "cpu", "--method", "all", "--use_pallas", "--test_dataset", "synthetic", "--image_size", "32",
             "--n_shot", "5", "--n_query", "3", "--gen_examples", "1", "--fine_tune_epoch", "1", "--iter_num", "2",
-            "--paths_json", pj]
-    with mock.patch.object(tfis, "fused_inner_scan", wraps=tfis.fused_inner_scan) as spy:
+            "--eval_batch", "1", "--paths_json", pj]
+    with mock.patch.object(tfis, "fused_inner_scan_lanes", wraps=tfis.fused_inner_scan_lanes) as spy:
         res = finetune.main(argv + ["--inner_scan", "fused"])
-    assert spy.call_count == 2  # one scan per episode
+    assert spy.call_count == 2  # one scan per episode (one-episode batches)
     p0, bank = spy.call_args.args[0], spy.call_args.args[1]
-    assert p0["conv1"].dtype == torch.bfloat16 and bank.dtype == torch.bfloat16 and bank.shape == (100, 2, 2, 256)
+    assert p0["conv1"].dtype == torch.bfloat16 and bank.dtype == torch.bfloat16 and bank.shape == (1, 100, 2, 2, 256)
     assert "2 Test Acc = " in capsys.readouterr().out
     assert len(res.accs) == 2 and all(np.isfinite(res.accs)) and all(0.0 <= a <= 100.0 for a in res.accs)
 

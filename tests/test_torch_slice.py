@@ -130,8 +130,8 @@ def test_bank_fmap_clean_triplet_matches(setup):
     gp, gs = convert.from_jax(s["gp"], s["gs"])
     ttrunk, _ = tbb.adapt_split(gp)
     ttrunk_s, _ = tbb.adapt_split(gs)
-    got = tee._bank_fmap(ttrunk, ttrunk_s, torch.from_numpy(support).permute(0, 1, 4, 2, 3), None, bcfg=tbb.resnet10(),
-                         aug_cfg=taug.AugmentCfg(image_size=SIZE), gen_examples=0)
+    got = tee._bank_fmap(ttrunk, ttrunk_s, torch.from_numpy(support).permute(0, 1, 4, 2, 3)[None], [None],
+                         bcfg=tbb.resnet10(), aug_cfg=taug.AugmentCfg(image_size=SIZE), gen_examples=0)[0]
     assert got.shape == (18, 256, SIZE // 16, SIZE // 16)
     np.testing.assert_allclose(np.transpose(got.numpy(), (0, 2, 3, 1)), np.asarray(want), rtol=1e-4, atol=1e-4)
 
@@ -141,8 +141,8 @@ def test_bank_fmap_with_augment_groups_shape():
     trunk, _ = tbb.adapt_split(p)
     trunk_s, _ = tbb.adapt_split(s)
     support = torch.randint(0, 256, (2, 3, 3, 18, 18), dtype=torch.uint8, generator=torch.Generator().manual_seed(1))
-    fmap = tee._bank_fmap(trunk, trunk_s, support, torch.Generator().manual_seed(2), bcfg=tbb.resnet10(),
-                          aug_cfg=taug.AugmentCfg(image_size=16), gen_examples=2)
+    fmap = tee._bank_fmap(trunk, trunk_s, support[None], [torch.Generator().manual_seed(2)], bcfg=tbb.resnet10(),
+                          aug_cfg=taug.AugmentCfg(image_size=16), gen_examples=2)[0]
     assert fmap.shape == (5 * 6, 256, 1, 1)
     assert torch.equal(fmap[:6], fmap[6:12]) and torch.equal(fmap[:6], fmap[12:18])
     assert not torch.equal(fmap[:6], fmap[18:24])

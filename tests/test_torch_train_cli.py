@@ -171,9 +171,11 @@ def test_refusals(tmp_path):
     assert len(res.losses) == 1 and np.isfinite(res.losses[0])
     with pytest.raises(NotImplementedError, match="item 18"):
         train.main(COMMON + ["--model", "ResNet10_FW"])
-    for flag in (["--episode_cache", "x"], ["--trace_dir", "x"], ["--unsupervised", "x"]):
+    for flag in (["--eval_batch", "2"], ["--trace_dir", "x"], ["--unsupervised", "x"]):  # eval-only flags
         with pytest.raises(SystemExit):
             train.main(COMMON + flag)
+    # the JAX training driver reads --episode_cache (mft_tpu/cli/train.py:250,298), and so does the port's
+    assert tcfg.parse_train_args(["--episode_cache", "x"]).episode_cache == "x"
 
 
 def test_train_flag_defaults_match_jax():
