@@ -48,7 +48,13 @@ non-zero:
    step of each training stage (baseline, episodic GnnNet with the edge
    kernel, the meta fine-tune with a fixed inner schedule, the 50-shot
    GnnNet step of ``cli.train_50``) on the card against the CPU at 64 px:
-   loss, gradients, updates, running stats;
+   loss, gradients, updates, running stats; DampNet's steps and eval member;
+   then the other backbones: one ResNet10_FW episodic GnnNet step with its
+   FWT noise drawn once on the host and fed to both devices (its noise
+   strengths' updates exactly 0 on both; the noise dropped on the final
+   block, planted on the card, must fail), and a ResNet18 lane batch against
+   its episodes alone on the CPU (its identity shortcuts dropped, planted,
+   must fail);
 5. drive the main path through ``mft_tpu_torch.cli.finetune.main`` at full
    width — ``--method all --use_pallas --inner_scan fused``, ResNet10 at
    224 px, 5-way 5-shot, 15 queries, ``gen_examples=17``,
@@ -78,21 +84,33 @@ non-zero:
    ``--fanout_group_pass 6`` on the fused lanes, ``--ensemble_fuse lane``
    on the eager ones); three batches with ``--inner_scan eager`` and three
    with ``--freeze_backbone``; and one 50-shot batch through
-   ``cli.finetune_50`` (its time includes the warm-up);
+   ``cli.finetune_50`` (its time includes the warm-up); then the other
+   backbones at ``--eval_batch 5`` from their own seeded checkpoints:
+   ResNet10_FW ``--inner_scan fused`` (both kernels' launches counted and
+   above 0) and ResNet18 ``--inner_scan eager`` (the edge kernel's) for two
+   batches each, ResNet34 eager for one (its warm-up included), each with
+   one more batch under the profiler (idle share, kernel times);
 6. drive the training path through ``mft_tpu_torch.cli.train.main`` at full
    width on the synthetic dataset (baseline, batch 16; episodic GnnNet
    ``--train_aug --use_pallas``; ``--fine_tune`` resumed from its
    checkpoint; ``cli.train_50`` GnnNet), with the launch counts set to 0
    before each stage and read after, seconds per step, peak device memory
-   and one profiled step per stage; then one ``--method all`` eval episode
-   from the checkpoints those stages wrote.
+   and one profiled step per stage, then ResNet10_FW episodic GnnNet
+   ``--train_aug --use_pallas`` (its noise strengths checked unchanged in
+   the checkpoint) and ResNet18 baseline the same way; ``cli.save_features``
+   over the synthetic split with that ResNet18 checkpoint, and ``cli.test``
+   on those features without and with ``--adaptation``, with seconds for
+   each; then one ``--method all`` eval episode from the checkpoints those
+   stages wrote.
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 the main path, max error, kernel / plain / bound times; launches on the
 training path and, for the edge kernel, one training step's forward times
 and its plain backward's; launches on the 50-shot main path and its times
 and bounds, and train_50's; launches on the 5-lane paths and a lane
-batch's times and bounds); the last line is
+batch's times and bounds; launches and the profiled batch's device time on
+the ResNet10_FW, ResNet18 and ResNet34 lane paths, and launches in
+ResNet10_FW's training); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -293,7 +311,8 @@ DAMP_FAULTS = {"plain": "backbone features detached, the head trains alone",
 #: (5-way 5-shot, 16 queries); the step profiled (0 is the warm-up).  The
 #: prototype DampNet variant takes 5 steps: plain, then corrupt and recover
 #: alternating
-TRAIN_EPISODES = {"episodic": 6, "fine_tune": 4, "train50": 4, "dampnet_full_class": 4, "dampnet": 5}
+TRAIN_EPISODES = {"episodic": 6, "fine_tune": 4, "train50": 4, "dampnet_full_class": 4, "dampnet": 5,
+                  "ResNet10_FW episodic": 4}
 PROFILED_STEP = 2
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
 #: the tensor cores, HBM3
@@ -1325,23 +1344,50 @@ def phase_cross_device(torch, dev):
 
     from mft_tpu_torch.ops import norm
 
+    real_bn = norm.batch_norm
+    leaky_bn = lambda *a, groups=1, **k: real_bn(*a, **k)  # the planted fault: one set of statistics for all lanes
+
+    def plant(stack):
+        for mod in (bb, gn, sys.modules["mft_tpu_torch.models.gnn"]):
+            stack.enter_context(mock.patch.object(mod, "batch_norm", leaky_bn))
+
+    lane_checks(torch, dev, bcfg, gcfg, (bp, bs, gp, gs, head), XDEV_LANE_FAULT, plant, ("eager", "fused"))
+
+
+def lane_checks(torch, dev, bcfg, gcfg, weights, fault: str, plant, modes, label: str = "ResNet10"):
+    """XDEV_LANES episodes as one ``--method all`` lane batch on the card
+    against the same episodes one at a time on the CPU, at 64 px (the final
+    block sees 4x4 maps), strict f32: without inner steps (eager), then one
+    epoch of each inner loop of ``modes``; each beside the planted ``fault``
+    (``plant(stack)`` enters its patches, on the card only), which the
+    rules must catch: XDEV_TOL without steps, XDEV_LANE_CAP and the argmax
+    wherever the CPU's top two scores lie more than XDEV_LANE_MARGIN apart
+    with one epoch.  ``weights``: ``(baseline params, stats, GNN params,
+    stats, head)``, on the CPU."""
+    import numpy as np
+
+    from mft_tpu_torch.core.episode import EpisodeSpec
+    from mft_tpu_torch.ops.augment import AugmentCfg
+    from mft_tpu_torch.train import eval_engine as ee
+
+    spec = EpisodeSpec(5, 5, 3)
+    bp, bs, gp, gs, head = weights
+    to = lambda t, d: {k: to(v, d) for k, v in t.items()} if isinstance(t, dict) else (
+        [to(v, d) for v in t] if isinstance(t, list) else t.to(d))
     aug = AugmentCfg(image_size=64)
     lanes = np.random.RandomState(4).randint(0, 256, (XDEV_LANES, 5, 8, 73, 73, 3), dtype=np.uint8)
     gens = lambda: [torch.Generator().manual_seed(10 + i) for i in range(XDEV_LANES)]
-    real_bn = norm.batch_norm
-    leaky_bn = lambda *a, groups=1, **k: real_bn(*a, **k)  # the planted fault: one set of statistics for all lanes
     cpu_of = {}  # the CPU's episodes alone, per (epochs, inner loop): the fault is planted on the card only
-    for epochs, mode, fault in ((0, "eager", None), (0, "eager", XDEV_LANE_FAULT), (1, "eager", None),
-                                (1, "eager", XDEV_LANE_FAULT), (1, "fused", None), (1, "fused", XDEV_LANE_FAULT)):
+    runs = [(0, "eager", None), (0, "eager", fault)] + [(1, m, f) for m in modes for f in (None, fault)]
+    for epochs, mode, planted in runs:
         tcfg = ee.TransferCfg(fine_tune_epochs=epochs, linear_epochs=epochs, inner_scan=mode,
                               opt_state_dtype="float32" if mode == "eager" else "bfloat16")
         program = ee.make_eval_program(method="all", bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug,
                                        gen_examples=1)
         models = {"baseline": (to(bp, dev), to(bs, dev)), "gnn": (to(gp, dev), to(gs, dev), to(head, dev))}
         with contextlib.ExitStack() as stack:
-            if fault:
-                for mod in (bb, gn, sys.modules["mft_tpu_torch.models.gnn"]):
-                    stack.enter_context(mock.patch.object(mod, "batch_norm", leaky_bn))
+            if planted:
+                plant(stack)
             card, _ = program(models, torch.from_numpy(lanes).to(dev).permute(0, 1, 2, 5, 3, 4), gens())
         models = {"baseline": (bp, bs), "gnn": (gp, gs, head)}
         base = torch.from_numpy(lanes).permute(0, 1, 2, 5, 3, 4)
@@ -1354,23 +1400,26 @@ def phase_cross_device(torch, dev):
         top2 = cpu.topk(2, dim=-1).values
         clear = (top2[..., 0] - top2[..., 1]) > XDEV_LANE_MARGIN
         flipped = card.argmax(-1) != cpu.argmax(-1)
-        label = f"{XDEV_LANES} episodes as one lane batch on the card vs one at a time on the CPU (64 px, {mode} " \
-                f"inner loop, {epochs} inner epochs{', planted fault: ' + fault if fault else ''})"
-        print(f"{label}: max |d scores| = {diff:.3e}; argmax differs in {int(flipped.sum())} of {flipped.numel()} "
+        desc = f"{label}: {XDEV_LANES} episodes as one lane batch on the card vs one at a time on the CPU (64 px, " \
+               f"{mode} inner loop, {epochs} inner epochs{', planted fault: ' + planted if planted else ''})"
+        print(f"{desc}: max |d scores| = {diff:.3e}; argmax differs in {int(flipped.sum())} of {flipped.numel()} "
               f"queries, {int((flipped & clear).sum())} of them among the {int(clear.sum())} whose top two CPU scores lie "
               f"more than {XDEV_LANE_MARGIN:g} apart (the CPU's top-two gaps where it differs: "
               f"{[round(float(v), 5) for v in (top2[..., 0] - top2[..., 1])[flipped]]})")
         ok = diff <= XDEV_TOL if epochs == 0 else (diff <= XDEV_LANE_CAP and not bool((flipped & clear).any()))
-        if ok == bool(fault):
-            fail(f"the lane check {'misses the planted fault' if fault else 'fails'}: {label}")
+        if ok == bool(planted):
+            fail(f"the lane check {'misses the planted fault' if planted else 'fails'}: {desc}")
 
 
-def _train_step_readings(torch, stage, dev, model, data, sched=None, dtype=None):
+def _train_step_readings(torch, stage, dev, model, data, sched=None, dtype=None, fwt_noise=None):
     """One step of ``stage`` on ``dev``: ``(loss, gradients, updates, new
     stats)`` as flat dicts of CPU tensors.  ``dtype``: cast the weights and
-    inputs (f64 runs the edge op's plain version, in f64)."""
+    inputs (f64 runs the edge op's plain version, in f64).  ``fwt_noise``:
+    the episodic step's FWT draws, one list per episode (ResNet10_FW, whose
+    noise strengths ``freeze_masked`` keeps out of Adam, as the driver does)."""
     from torch.utils import _pytree as pytree
 
+    from mft_tpu_torch.models import backbone as bb
     from mft_tpu_torch.train import optimizers as opt
     from mft_tpu_torch.train import steps
     from mft_tpu_torch.utils.checkpoint import keyed
@@ -1380,7 +1429,11 @@ def _train_step_readings(torch, stage, dev, model, data, sched=None, dtype=None)
     if dtype == torch.float64 and gcfg is not None:
         gcfg = gcfg._replace(use_pallas=False)
     params, stats = pytree.tree_map(to, params), pytree.tree_map(to, stats)
+    noise = None if fwt_noise is None else [[None if d is None else pytree.tree_map(to, d) for d in ep]
+                                            for ep in fwt_noise]
     tx = opt.torch_adam(1e-3)
+    if bcfg.block == "fwt":
+        tx = opt.freeze_masked(tx, bb.fwt_trainable_mask(params))
     if sched is not None:
         sched = tuple(t.to(dev) for t in sched)
     data = tuple(to(t) for t in data) if isinstance(data, tuple) else to(data)
@@ -1390,9 +1443,10 @@ def _train_step_readings(torch, stage, dev, model, data, sched=None, dtype=None)
         out = steps.baseline_train_step(params, stats, tx.init(params), x, y, bcfg=bcfg, tx=tx)
     elif stage.startswith("episodic"):
         eps = data
-        loss_fn = lambda p: steps._episode_loss(p, stats, eps[0], method="gnnnet", bcfg=bcfg, gcfg=gcfg, spec=spec)
+        loss_fn = lambda p: steps._episode_loss(p, stats, eps[0], method="gnnnet", bcfg=bcfg, gcfg=gcfg, spec=spec,
+                                                fwt_noise=None if noise is None else noise[0])
         out = steps.episodic_train_step(params, stats, tx.init(params), eps, method="gnnnet", bcfg=bcfg, gcfg=gcfg,
-                                        spec=spec, tx=tx)
+                                        spec=spec, tx=tx, fwt_noise=noise)
     else:
         eps = data
         mcfg = steps.MetaFinetuneCfg(bn_mode="episode")
@@ -1485,6 +1539,22 @@ def _readings_apart(a, b, floor=None):
     stats = max(float((sa[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for k, v in sb.items())
     return {"loss": abs(la - lb) / abs(lb), "grad_worst": grad_worst, "grad_rel_l2": math.sqrt(num / den),
             "update_disagree": disagree / total, "stats": stats}
+
+
+def _worst_tensors(a, b, floor, n: int = 4) -> str:
+    """The tensors behind ``_readings_apart(a, b, floor)``'s gradient and
+    update readings: the ``n`` largest gradient errors as multiples of their
+    allowance, and the ``n`` tensors with the most update elements apart
+    (count / size)."""
+    _, ga, ua, _ = a
+    _, gb, ub, _ = b
+    scale = max(float(v.abs().max()) for v in gb.values())
+    ratio = {k: float((ga[k] - v).abs().max()) / (TRAIN_GRAD_TOL * float(v.abs().max()) + 1e-5 * scale
+                                                  + TRAIN_F32_FACTOR * floor.get(k, 0.0)) for k, v in gb.items()}
+    apart = {k: int(((ua[k] - v).abs() > 1e-2 * 1e-3).sum()) for k, v in ub.items()}
+    top = lambda d: sorted(d, key=lambda k: -d[k])[:n]
+    return ("gradient " + ", ".join(f"{k} {ratio[k]:.3f}" for k in top(ratio)) + "; updates apart "
+            + ", ".join(f"{k} {apart[k]}/{ub[k].numel()}" for k in top(apart)))
 
 
 def phase_train_cross_device(torch, dev):
@@ -1733,6 +1803,105 @@ def phase_dampnet_cross_device(torch, dev):
             fail(f"the card's DampNet eval ({scan}) disagrees with the CPU's at {epochs} inner epochs")
 
 
+#: phase 4's planted faults on the other backbones (each must fail its rules)
+FWT_FAULT = "FWT noise dropped on the final block"
+R18_FAULT = "identity shortcuts dropped"
+
+
+def phase_backbones_cross_device(torch, dev):
+    """The other backbones on the card against the CPU, full width, 64 px,
+    strict f32: one ResNet10_FW episodic GnnNet step (the edge kernel on the
+    card), its FWT noise drawn once on the host and fed to both devices,
+    under the episodic step's rules (TRAIN_*, the CPU replaying the card's
+    ReLU and the GNN's leaky-ReLU decisions within RELU_REACH; the update
+    share against DAMP_UPDATE_FACTOR times the CPU's own f32-vs-f64 share,
+    as the DampNet step) and with every noise strength's update exactly 0
+    on both, beside FWT_FAULT on the card, which must fail them.  Why the
+    DampNet step's form: on the first call on an H100 the step read
+    grad_worst 1.749 (the first Wcompute's conv4 weight, a sum of products
+    of both signs behind leaky ReLUs) and 1.478e-3 of the update elements
+    apart with ReLU decisions alone replayed, where the CPU's own f32 step
+    reads 8.7e-4 of them apart from f64 (the noise's shifts put more
+    pre-activations near 0 than ResNet10's step has);
+    then a ResNet18 lane batch against its episodes alone on the CPU under
+    ``lane_checks``' rules, eager (the fused scan refuses ResNet18), beside
+    R18_FAULT."""
+    from unittest import mock
+
+    import numpy as np
+
+    from mft_tpu_torch.core.episode import EpisodeSpec
+    from mft_tpu_torch.methods import gnnnet as gn
+    from mft_tpu_torch.models import backbone as bb
+
+    g = torch.Generator().manual_seed(6)
+    bcfg = bb.resnet10_fw()
+    gcfg = gn.GnnNetCfg(use_pallas=True)
+    feature, stats = bb.init_backbone(g, bcfg)
+    model = (bcfg, gcfg, EpisodeSpec(5, 5, 3), {"feature": feature, **gn.init_head(g, gcfg)}, stats)
+    data = torch.from_numpy(np.random.RandomState(7).rand(1, 5, 8, 3, 64, 64).astype(np.float32))
+    noise = [bb.draw_fwt_noise(g, bcfg)]
+    stage = "episodic ResNet10_FW"
+
+    def readings(dev_, fwt_noise, replay=None, dtype=None):
+        rec = ReluDecisions(torch, replay=replay, leaky=True)
+        with rec:
+            out = _train_step_readings(torch, stage, dev_, model, data, dtype=dtype, fwt_noise=fwt_noise)
+        return out, rec
+
+    card, rec = readings(dev, noise)
+    cpu_own, _ = readings("cpu", noise)
+    exact, _ = readings("cpu", noise, dtype=torch.float64)
+    f32_floor = {k: float((v.double() - exact[1][k]).abs().max()) for k, v in cpu_own[1].items()}
+    cpu, rep = readings("cpu", noise, replay=rec.masks)
+    if not rep.within_reach():
+        fail(f"the card's {stage} step takes ReLU decisions the CPU's f32 rounding cannot explain: {rep.flips}")
+    moved = [k for run in (card, cpu) for k, v in run[2].items() if "fwt_" in k and bool(v.any())]
+    if moved:
+        fail(f"the {stage} step moved the frozen noise strengths {moved}")
+    floor = _readings_apart(cpu_own, exact)
+    bounds = {"loss": TRAIN_LOSS_TOL, "grad_worst": 1.0, "grad_rel_l2": math.inf, "stats": TRAIN_STATS_TOL,
+              "update_disagree": max(1.0 - TRAIN_UPDATE_SHARE, DAMP_UPDATE_FACTOR * floor["update_disagree"])}
+    got = _readings_apart(card, cpu, f32_floor)
+    print(f"{stage}: the CPU's f32 step against f64: " + ", ".join(f"{k} {v:.3e}" for k, v in floor.items())
+          + "; card vs CPU, worst tensors: " + _worst_tensors(card, cpu, f32_floor))
+    faulty_card, rec_f = readings(dev, [noise[0][:-1] + [None]])
+    cpu_f, rep_f = readings("cpu", noise, replay=rec_f.masks)
+    faulty = _readings_apart(faulty_card, cpu_f, f32_floor)
+    caught = [k for k, v in bounds.items() if not faulty[k] <= v] + ([] if rep_f.within_reach() else ["ReLU decisions"])
+    print(f"card vs CPU training step ({stage}, 64 px, f32, the same FWT draws): loss card {card[0]:.7f} CPU "
+          f"{cpu[0]:.7f}; " + ", ".join(f"{k} {v:.3e}" for k, v in got.items())
+          + "; bounds " + ", ".join(f"{k} {v:.3e}" for k, v in bounds.items())
+          + f"; ReLU decisions: the CPU took the card's ({len(rec.masks)} calls), {sum(n for _, n, _ in rep.flips)} "
+          f"elements differ from its own; the {sum(1 for k in card[2] if 'fwt_' in k)} noise strengths' updates 0 on "
+          f"both; planted fault ({FWT_FAULT}): " + ", ".join(f"{k} {v:.3e}" for k, v in faulty.items())
+          + f": {'caught by ' + ', '.join(caught) if caught else 'passes'}")
+    if not caught:
+        fail(f"the {stage} cross-device check does not catch {FWT_FAULT}")
+    bad = [k for k, v in bounds.items() if not got[k] <= v]
+    if bad:
+        fail(f"the card's {stage} step parts from the CPU's: {bad}")
+
+    r18 = bb.resnet18()
+    g = torch.Generator().manual_seed(8)
+    bp, bs = bb.init_backbone(g, r18)
+    gp, gs = bb.init_backbone(g, r18)
+    head = gn.init_head(g, gcfg)
+    real_block = bb._apply_block
+
+    def no_identity(p, s, x, half_res, ctx, cd=None, conv_groups=1, noise=None):  # the planted fault
+        if "conv_sc" in p or "conv3" in p:
+            return real_block(p, s, x, half_res, ctx, cd, conv_groups, noise)
+        out = bb.conv2d(x, p["conv1"], stride=2 if half_res else 1, padding=1, compute_dtype=cd, groups=conv_groups)
+        out, s1 = bb._bn(out, p["bn1"], s["bn1"], ctx)
+        out = bb.conv2d(torch.relu(out), p["conv2"], stride=1, padding=1, compute_dtype=cd, groups=conv_groups)
+        out, s2 = bb._bn(out, p["bn2"], s["bn2"], ctx)
+        return torch.relu(out), {"bn1": s1, "bn2": s2}
+
+    plant = lambda stack: stack.enter_context(mock.patch.object(bb, "_apply_block", no_identity))
+    lane_checks(torch, dev, r18, gcfg, (bp, bs, gp, gs, head), R18_FAULT, plant, ("eager",), label="ResNet18")
+
+
 def write_checkpoints(torch, save_dir):
     """Seeded random checkpoints in the reference .tar layout: baseline@400,
     gnnnet_aug 5-shot@600 and 50-shot@600 (the directories and epochs that
@@ -1745,15 +1914,7 @@ def write_checkpoints(torch, save_dir):
     paths = cfg_mod.Paths(save_dir=save_dir)
     g = torch.Generator().manual_seed(0)
     bcfg = bb.resnet10()
-    p, s = bb.init_backbone(g, bcfg)
-    d = cfg_mod.checkpoint_dir(paths, "miniImageNet", "ResNet10", "baseline", train_aug=False)
-    os.makedirs(d)
-    save_tar(os.path.join(d, "400.tar"), 400, to_state_dict({"feature": p}, s))
-    p, s = bb.init_backbone(g, bcfg)
-    head = gn.init_head(g, gn.GnnNetCfg())
-    d = cfg_mod.checkpoint_dir(paths, "miniImageNet", "ResNet10", "gnnnet", train_aug=True, n_way=5, n_shot=5)
-    os.makedirs(d)
-    save_tar(os.path.join(d, "600.tar"), 600, to_state_dict({"feature": p, **head}, s))
+    write_backbone_checkpoints(torch, save_dir, "ResNet10", g)
     p, s = bb.init_backbone(g, bcfg)
     head = gn.init_head(g, gn.GnnNetCfg(n_support=50, support_compress=2))
     d = cfg_mod.checkpoint_dir(paths, "miniImageNet", "ResNet10", "gnnnet", train_aug=True, n_way=5, n_shot=50)
@@ -1767,6 +1928,66 @@ def write_checkpoints(torch, save_dir):
     with open(pj, "w") as f:
         json.dump({"save_dir": save_dir}, f)
     return pj
+
+
+def write_backbone_checkpoints(torch, save_dir, model: str, g):
+    """Random baseline@400 and gnnnet_aug 5-shot@600 ``.tar`` files of
+    ``model``, drawn from the generator ``g``: the pair ``--method all``
+    reads."""
+    from mft_tpu_torch import config as cfg_mod
+    from mft_tpu_torch.convert import save_tar, to_state_dict
+    from mft_tpu_torch.methods import gnnnet as gn
+    from mft_tpu_torch.models import backbone as bb
+
+    paths = cfg_mod.Paths(save_dir=save_dir)
+    bcfg = bb.MODEL_REGISTRY[model]()
+    p, s = bb.init_backbone(g, bcfg)
+    d = cfg_mod.checkpoint_dir(paths, "miniImageNet", model, "baseline", train_aug=False)
+    os.makedirs(d)
+    save_tar(os.path.join(d, "400.tar"), 400, to_state_dict({"feature": p}, s))
+    p, s = bb.init_backbone(g, bcfg)
+    head = gn.init_head(g, gn.GnnNetCfg())
+    d = cfg_mod.checkpoint_dir(paths, "miniImageNet", model, "gnnnet", train_aug=True, n_way=5, n_shot=5)
+    os.makedirs(d)
+    save_tar(os.path.join(d, "600.tar"), 600, to_state_dict({"feature": p, **head}, s))
+
+
+#: phase 5's other backbones: (model, inner loop, episodes, key of the kernels line); the fused scan takes
+#: ResNet10_FW's final block (ResNet10's geometry), ResNet18/34's identity-shortcut block runs eager
+BACKBONE_EVALS = (("ResNet10_FW", "fused", 2 * LANES, "fw"), ("ResNet18", "eager", 2 * LANES, "r18"),
+                  ("ResNet34", "eager", LANES, "r34"))
+
+
+def phase_backbone_evals(torch, kernels, finetune, rows, pj: str):
+    """``--method all --use_pallas`` at full width (224 px, 5-way 5-shot, 15
+    queries, ``gen_examples=17``, ``fine_tune_epoch=5``, ``--eval_batch
+    5``) on each of BACKBONE_EVALS: launch counts set to 0 before and read
+    after (the edge kernel three times a batch, the scan once a batch on
+    ResNet10_FW and never on ResNet18/34), seconds per episode and peak
+    memory (``drive``: the batches after the first; ResNet34's one batch
+    includes its warm-up), then one batch under the profiler (idle share,
+    the kernels' device time in the batch)."""
+    for i, (model, _, _, _) in enumerate(BACKBONE_EVALS):
+        write_backbone_checkpoints(torch, os.path.dirname(pj), model, torch.Generator().manual_seed(10 + i))
+    common = ["--device", "cuda", "--method", "all", "--use_pallas", "--test_dataset", "synthetic", "--image_size",
+              "224", "--gen_examples", "17", "--fine_tune_epoch", "5", "--n_shot", "5", "--eval_batch", str(LANES),
+              "--paths_json", pj]
+    for model, scan, episodes, key in BACKBONE_EVALS:
+        argv = common + ["--model", model, "--inner_scan", scan]
+        batches = episodes // LANES
+        kernels.reset_launch_counts()
+        steady = drive(torch, finetune, f"{model} lane path (--eval_batch {LANES} --inner_scan {scan})", argv, episodes)
+        counts = kernels.launch_counts()
+        want = {"edge_abs_diff_matmul": 3 * batches, "fused_inner_scan": batches if scan == "fused" else 0}
+        print(f"{model} lane path kernel launches: {counts} ({batches} batches; want {want})")
+        if any(counts[k] != v for k, v in want.items()):
+            fail(f"the {model} lane path launched {counts}, not {want}")
+        prof = phase_profile(torch, finetune, argv, steady, 3, label=f"{model}, {LANES} lanes", scan=scan == "fused",
+                             episodes=LANES)
+        for row in rows:
+            row[f"launches_{key}"] = counts[row["name"]]
+            row[f"ms_{key}"] = prof["edge_ms" if row["name"] == "edge_abs_diff_matmul" else "scan_ms"] or None
+        mark(f"{model} lane eval and profile")
 
 
 def drive(torch, finetune, label: str, argv, episodes: int) -> float:
@@ -1887,6 +2108,7 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int,
               f"{t['device_us'].get(name, 0.0) / 1e3:.3f} ms (kernels starting inside its span on the device)")
     for name, (us, calls) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"{tag} kernel {us / 1e3:10.3f} ms {calls:7d} calls  {name[:110]}")
+    return {"edge_ms": edge_us / 1e3, "scan_ms": sum(scan_us.values()) / 1e3, "idle": 1.0 - busy_us / 1e6 / steady_s}
 
 
 def phase_training(torch, kernels, save_dir) -> dict:
@@ -1930,6 +2152,14 @@ def phase_training(torch, kernels, save_dir) -> dict:
                                        str(TRAIN_EPISODES["dampnet_full_class"])]),
         ("dampnet", damp + ["--method", "dampnet", "--episodes_per_epoch", str(TRAIN_EPISODES["dampnet"])]),
     )
+    on = lambda model, argv: [model if a == "ResNet10" else a for a in argv]
+    stages += (
+        ("ResNet10_FW episodic", on("ResNet10_FW", gnn) + ["--episodes_per_epoch",
+                                                           str(TRAIN_EPISODES["ResNet10_FW episodic"]),
+                                                           "--start_epoch", "0", "--stop_epoch", "0"]),
+        ("ResNet18 baseline", on("ResNet18", common) + ["--method", "baseline", "--batch_size", "16", "--start_epoch",
+                                                        "0", "--stop_epoch", "0"]),
+    )
     train_counts = {name: 0 for name in kernels.MODULES}
     stage_counts = {}
     for stage, argv in stages:
@@ -1956,7 +2186,7 @@ def phase_training(torch, kernels, save_dir) -> dict:
         steady = [t for i, t in enumerate(res.seconds) if i not in (0, PROFILED_STEP)]
         step_s = sum(steady) / len(steady)
         # DampNet's GNN takes the plain edge op, as JAX's (DampNetCfg.gnn_cfg passes no use_pallas)
-        want_edge = 0 if stage == "baseline" or stage.startswith("dampnet") else 3 * n
+        want_edge = 0 if stage.endswith("baseline") or stage.startswith("dampnet") else 3 * n
         print(f"training {stage}: {n} steps, losses {[round(v, 4) for v in res.losses]}, seconds per step "
               f"{[round(t, 4) for t in res.seconds]} (first includes warm-up, step {PROFILED_STEP} profiled)")
         print(f"training {stage} steady seconds/step = {step_s:.4f}; peak device memory "
@@ -1967,6 +2197,8 @@ def phase_training(torch, kernels, save_dir) -> dict:
         if counts["fused_inner_scan"] != 0:
             fail(f"training {stage} launched the fused scan, which the training path does not use")
         stage_counts[stage] = counts
+        if stage == "ResNet10_FW episodic":
+            check_fwt_frozen(torch, os.path.join(res.ckpt_dir, "0.tar"))
         if stage == "dampnet":
             with open(os.path.join(res.ckpt_dir, "train_log.jsonl")) as f:
                 modes = [json.loads(line)["mode"] for line in f if '"mode"' in line]
@@ -1999,6 +2231,54 @@ def phase_training(torch, kernels, save_dir) -> dict:
             print(f"training {stage} kernel {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls  {e.key[:100]}")
         mark(f"training {stage}")
     return train_counts, stage_counts
+
+
+def check_fwt_frozen(torch, path: str):
+    """The noise strengths a ResNet10_FW training run saved are their init
+    values, bit for bit (``freeze_masked``), and its Adam state keeps no
+    moments for them."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    fwt = {k: v for k, v in blob["state"].items() if k.endswith((".gamma", ".beta"))}
+    moved = [k for k, v in fwt.items() if not torch.equal(v, torch.full_like(v, 0.3 if k.endswith("gamma") else 0.5))]
+    in_adam = [k for k in blob.get("adam", {}).get("mu", {}) if "fwt_" in k]
+    print(f"training ResNet10_FW: its {len(fwt)} noise strengths after the steps are their init values: {not moved}; "
+          f"Adam moments kept for them: {len(in_adam)}")
+    if len(fwt) != 14 or moved or in_adam:
+        fail(f"ResNet10_FW training moved or kept Adam state for its frozen noise strengths: {moved or in_adam}")
+
+
+#: cli.test episodes after cli.save_features (two --eval_batch 5 batches)
+FEATURE_TEST_EPISODES = 10
+
+
+def phase_feature_tools(torch, save_dir: str):
+    """``cli.save_features`` over the synthetic split (480 images at 224 px,
+    batches of 64) with the ResNet18 baseline checkpoint the training phase
+    wrote, then ``cli.test`` on those features without and with
+    ``--adaptation`` (the linear probe: 100 epochs of batch 4 a lane),
+    FEATURE_TEST_EPISODES episodes each; seconds of each."""
+    from mft_tpu_torch.cli import save_features
+    from mft_tpu_torch.cli import test as feature_test
+
+    common = ["--device", "cuda", "--dataset", "synthetic", "--model", "ResNet18", "--method", "baseline",
+              "--paths_json", os.path.join(save_dir, "paths.json")]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = save_features.main(common + ["--save_iter", "0", "--split", "novel"])
+    print(f"save_features (ResNet18, 224 px): {res.n_images} images in {time.perf_counter() - t0:.3f} s "
+          f"({res.seconds:.3f} s in its embedding loop)")
+    if res.n_images != 480:
+        fail(f"save_features embedded {res.n_images} images, not the synthetic split's 480")
+    for extra in ([], ["--adaptation"]):
+        t0 = time.perf_counter()
+        out = feature_test.main(common + ["--n_shot", "5", "--iter_num", str(FEATURE_TEST_EPISODES), "--eval_batch",
+                                          str(LANES)] + extra)
+        seconds = time.perf_counter() - t0
+        if len(out.accs) != FEATURE_TEST_EPISODES or not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in out.accs):
+            fail(f"cli.test {' '.join(extra)}: accuracies {out.accs}")
+        print(f"cli.test {' '.join(extra) or '(ProtoNet scores)'}: {FEATURE_TEST_EPISODES} episodes in {seconds:.3f} s, "
+              f"seconds per batch of {LANES} {[round(t, 4) for t in out.batch_seconds]} (the first includes warm-up); "
+              f"mean acc {out.mean:.2f}")
 
 
 def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
@@ -2090,6 +2370,8 @@ def main():
     mark("training steps card vs CPU")
     phase_dampnet_cross_device(torch, dev)
     mark("DampNet step and eval card vs CPU")
+    phase_backbones_cross_device(torch, dev)
+    mark("ResNet10_FW step and ResNet18 lanes card vs CPU")
 
     # 5. the main path at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
@@ -2196,6 +2478,7 @@ def main():
             if row["launches_lanes50"] == 0:
                 fail(f"kernel {row['name']} was never launched on the 50-shot lane path")
         mark("lane evals: frozen, 50-shot")
+        phase_backbone_evals(torch, kernels, finetune, rows, pj)
 
     # 6. the training path at full width, then one eval episode from the checkpoints it wrote
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
@@ -2208,6 +2491,9 @@ def main():
         for row in rows:
             row["launches_train"] = train_counts[row["name"]]
             row["launches_train50"] = stage_counts["train50"][row["name"]]
+            row["launches_train_fw"] = stage_counts["ResNet10_FW episodic"][row["name"]]
+        phase_feature_tools(torch, save_dir)
+        mark("save_features and test")
         # the last --dataset / --paths_json wins: the trained checkpoints' directory
         pj_trained = os.path.join(save_dir, "paths.json")
         drive(torch, finetune, "eval from the trained checkpoints", argv + ["--dataset", "synthetic", "--paths_json",
@@ -2221,7 +2507,8 @@ def main():
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
              "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet",
              "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_lanes50",
-             "ms_lanes50", "bound_ms_lanes50"]
+             "ms_lanes50", "bound_ms_lanes50", "launches_fw", "ms_fw", "launches_r18", "ms_r18", "launches_r34",
+             "ms_r34", "launches_train_fw"]
     # keys of a path that a kernel off that path (or a number this run does not measure) leaves null
     print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -214,13 +214,13 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=Non
 
 
 def _refuse_unported(a):
-    unported = {
-        f"--method {a.method}": a.method not in ee.METHODS,
-        f"--model {a.model} (ROADMAP Queue 1 item 18, the other backbones)": a.model not in bb.MODEL_REGISTRY,
-    }
-    asked = [k for k, v in unported.items() if v]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+    cfg_mod.check_model(a.model)
+    if a.method not in ee.METHODS:
+        raise NotImplementedError(f"not ported yet: --method {a.method}")
+    if a.inner_scan == "fused" and not bb.final_block_has_shortcut(bb.MODEL_REGISTRY[a.model]()):
+        raise SystemExit(f"--inner_scan fused: the scan's kernels take a final block with a 1x1 shortcut conv "
+                         f"(ResNet10, ResNet10_FW); {a.model}'s final block has an identity shortcut, so it runs "
+                         "--inner_scan eager")
     if not a.method.startswith("dampnet") and (a.unsupervised or a.dampnet_eval != "finetune"):
         raise SystemExit("--unsupervised and --dampnet_eval apply to --method dampnet|dampnet_full|dampnet_full_class")
 

@@ -20,8 +20,10 @@ device from a generator seeded by ``--seed``.  Checkpoints are the
 reference's ``<epoch>.tar`` (``utils/checkpoint.py``), which the port's eval
 reads.  At ``--n_shot >= 50`` the GnnNet head is the compressed 50-shot
 variant (reference train_50.py, gnnnet_copy.py; ``cli/train_50.py`` pins
-its defaults).  Not ported: backbones other than ResNet10 (ROADMAP Queue 1
-item 18).
+its defaults).  ``--model`` is any backbone of the reference's
+``model_dict``: ResNet10, ResNet10_FW (its FWT noise drawn per episode from
+a generator seeded by ``--seed``, its noise strengths frozen by
+``freeze_masked``), ResNet18, ResNet34.
 
 Run: ``python -m mft_tpu_torch.cli.train --method gnnnet --dataset
 miniImageNet --n_shot 5 --train_aug --use_pallas --stop_epoch 400``
@@ -38,6 +40,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from mft_tpu_torch import config as cfg_mod
 from mft_tpu_torch import resolve_device
@@ -98,10 +101,10 @@ METHODS = ("baseline", "gnnnet", "protonet", "dampnet", "dampnet_full", "dampnet
 
 
 def _refuse_unported(a):
+    cfg_mod.check_model(a.model)
     damp = a.method.startswith("dampnet")
     unported = {
         f"--method {a.method}": a.method not in METHODS,
-        f"--model {a.model} (ROADMAP Queue 1 item 18, the other backbones)": a.model not in bb.MODEL_REGISTRY,
         # the JAX driver's DampNet loop samples its episodes and has no FO-MAML stage
         f"--method {a.method} with --fine_tune or --episode_manifest": damp and (a.fine_tune or bool(a.episode_manifest)),
     }
@@ -135,6 +138,11 @@ def main(argv=None, *, observe_step=_no_observer) -> TrainResult:
                                             a.n_shot, a.num_classes, use_pallas=a.use_pallas, device=device)
     bcfg = bcfg._replace(compute_dtype=a.dtype)
     tx = opt.torch_adam(1e-3)  # Adam(model.parameters()) defaults (train.py:27-28)
+    trainable = bb.fwt_trainable_mask(params)
+    if not all(pytree.tree_leaves(trainable)):
+        # ResNet10_FW: the noise strengths are requires_grad=False in the
+        # reference (backbone.py:324-325) and never train
+        tx = opt.freeze_masked(tx, trainable)
     opt_state = tx.init(params)
     dstate = dn.fresh_state(gcfg, device=device) if a.method.startswith("dampnet") else None
 
@@ -224,6 +232,7 @@ def run_episodic(a, manifest, aug_cfg, bcfg, gcfg, spec, params, stats, tx, opt_
     mcfg = steps.MetaFinetuneCfg(epochs=steps.inner_epochs(method, gcfg), batch_size=4, bn_mode=a.bn_mode)
     gen_aug = torch.Generator().manual_seed(a.seed)
     gen_inner = torch.Generator().manual_seed(a.seed + 1)  # the inner minibatch order of --fine_tune
+    gen_fwt = torch.Generator().manual_seed(a.seed + 3)  # ResNet10_FW's noise in the episodic steps
     stage = "fine_tune" if a.fine_tune else "episodic"
     # --episode_manifest: replay recorded episodes instead of sampling (the
     # concatenation over epochs, sliced by --episodes_per_epoch)
@@ -262,7 +271,8 @@ def run_episodic(a, manifest, aug_cfg, bcfg, gcfg, spec, params, stats, tx, opt_
                         mcfg=mcfg, tx=tx)
                 else:
                     params, stats, opt_state, m = steps.episodic_train_step(
-                        params, stats, opt_state, x, method=method, bcfg=bcfg, gcfg=gcfg, spec=spec, tx=tx)
+                        params, stats, opt_state, x, method=method, bcfg=bcfg, gcfg=gcfg, spec=spec, tx=tx,
+                        fwt_noise=gen_fwt)
                 loss = float(m["loss"])  # waits for the step
             t2 = time.perf_counter()
             t_data += t1 - t0

@@ -10,7 +10,8 @@ does not read.  It also sets the eval engine's four knobs
 in ``bench.py`` only.  The training driver takes the flags that
 ``mft_tpu.cli.train`` reads; argparse rejects the eval-only ones
 (``--eval_batch``, ``--freeze_backbone``, ``--trace_dir``, the engine's
-knobs, the eval's episode and DampNet flags).
+knobs, the eval's episode and DampNet flags).  ``save_features`` and
+``test`` take the flags their JAX drivers read (:func:`parse_features_args`).
 """
 
 from __future__ import annotations
@@ -71,6 +72,17 @@ def checkpoint_dir(paths: Paths, dataset: str, model: str, method: str, *, train
     if method not in ("baseline", "baseline++") and n_way is not None:
         d += f"_{n_way}way_{n_shot}shot"
     return d
+
+
+#: the backbones the drivers run: the reference's model_dict (io_utils.py:7-8);
+#: the registry's split-backbone pieces (ResNet8, ResNet_3, ResNet_fin) have no
+#: driver path, as in the JAX package
+DRIVER_MODELS = ("ResNet10", "ResNet10_FW", "ResNet18", "ResNet34")
+
+
+def check_model(model: str) -> None:
+    if model not in DRIVER_MODELS:
+        raise SystemExit(f"--model {model}: the drivers run {' | '.join(DRIVER_MODELS)}")
 
 
 def parse_finetune_args(argv=None):
@@ -152,6 +164,43 @@ def parse_finetune_args(argv=None):
     for flag in ("eval_batch", "fanout_group_pass"):
         if getattr(a, flag) < 1:
             ap.error(f"--{flag} must be at least 1, got {getattr(a, flag)}")
+    return a
+
+
+def parse_features_args(script: str, argv=None):
+    """The flags ``mft_tpu.cli.save_features`` (``script='save_features'``)
+    and ``mft_tpu.cli.test`` (``'test'``) read, with the JAX parser's
+    defaults (mft_tpu/config.py:168-172 adds ``--split`` and, for the test,
+    ``--adaptation``), plus ``--device``."""
+    if script not in ("save_features", "test"):
+        raise ValueError(f"script must be 'save_features' or 'test', not {script!r}")
+    ap = argparse.ArgumentParser(description=f"mft_tpu_torch few-shot feature script {script}")
+    ap.add_argument("--device", default="cuda", help="torch device; 'cuda' raises when no card is present")
+    ap.add_argument("--dataset", default="miniImageNet", help="dataset to embed (and the checkpoint dir's)")
+    ap.add_argument("--model", default="ResNet10", help="backbone architecture")
+    ap.add_argument("--method", default="baseline", help="the checkpoint's method (its directory)")
+    ap.add_argument("--train_n_way", default=5, type=int)
+    ap.add_argument("--test_n_way", default=5, type=int)
+    ap.add_argument("--n_shot", default=5, type=int)
+    ap.add_argument("--train_aug", action="store_true")
+    ap.add_argument("--save_iter", default=-1, type=int)
+    ap.add_argument("--image_size", default=224, type=int)
+    ap.add_argument("--base_size", default=-1, type=int, help="host decode resolution; -1 = int(1.15*image_size)")
+    ap.add_argument("--iter_num", default=600, type=int, help="test episodes")
+    ap.add_argument("--eval_batch", default=5, type=int, help="test episodes probed together as lanes")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--seed", default=10, type=int)
+    ap.add_argument("--paths_json", default=None)
+    ap.add_argument("--split", default="novel")
+    if script == "test":
+        ap.add_argument("--adaptation", action="store_true",
+                        help="score with the linear probe (100 epochs of batch 4, the reference's SGD) instead of "
+                             "the ProtoNet prototypes")
+    a = ap.parse_args(argv)
+    if a.base_size <= 0:
+        a.base_size = int(a.image_size * 1.15)
+    if a.eval_batch < 1:
+        ap.error(f"--eval_batch must be at least 1, got {a.eval_batch}")
     return a
 
 

@@ -16,8 +16,9 @@ reference's ``.tar`` state dicts.
   ``model.state_dict()`` key layout (``feature.trunk.*``, ``fc.*``,
   ``gnn.*``, ``classifier.*``, DampNet's ``W_R``, ``V_R``, ``W_R_std``,
   ``V_R_std``, ``layer{1,2,3}[_add]``; the mapping of
-  ``mft_tpu/utils/torch_import.py``, kept here as a copy) for ResNet10 and
-  the heads; :func:`heads_from_state_dict` maps a state dict without a
+  ``mft_tpu/utils/torch_import.py``, kept here as a copy) for the
+  ``SimpleBlock`` backbones (ResNet10_FW's noise strengths and the stem-less
+  ResNet_fin included) and the heads; :func:`heads_from_state_dict` maps a state dict without a
   backbone.  DampNet's prototypes and stores are not in a reference state
   dict (plain attributes there): ``utils/checkpoint.py`` keeps them beside it; :func:`load_tar` / :func:`save_tar` read and write the
   ``{'epoch', 'state'}`` files that the reference's train.py and
@@ -83,16 +84,31 @@ def to_jax(params, stats=None):
     return (out, _map_tree(stats, lambda k, t: t.detach().cpu().numpy())) if stats is not None else (out, None)
 
 
+def _drop_masked(tree):
+    """A moment tree of a masked optax state without its frozen entries:
+    optax keeps an empty ``MaskedNode`` tuple where a leaf is frozen."""
+    if isinstance(tree, dict):
+        return {k: _drop_masked(v) for k, v in tree.items() if not (isinstance(v, tuple) and len(v) == 0)}
+    if isinstance(tree, list):
+        return [_drop_masked(v) for v in tree]
+    return tree
+
+
 def adam_from_jax(opt_state_np, *, device="cpu") -> dict:
     """The JAX ``torch_adam`` state (the optax chain's tuple, whose
     ``ScaleByAdamState`` holds ``count``, ``mu`` and ``nu``; numpy leaves)
     -> the port's ``torch_adam`` state ``{"mu", "nu", "t"}``, the moments
-    laid out as :func:`from_jax` lays out the parameters."""
+    laid out as :func:`from_jax` lays out the parameters.  The state of
+    ``freeze_masked(torch_adam)`` (an ``optax.multi_transform`` whose
+    ``'train'`` group holds the chain) maps to the port's
+    ``freeze_masked`` state: the moments without the frozen entries."""
+    if hasattr(opt_state_np, "inner_states"):
+        opt_state_np = opt_state_np.inner_states["train"].inner_state
     adam = next((s for s in opt_state_np if hasattr(s, "mu") and hasattr(s, "nu")), None)
     if adam is None:
         raise ValueError("no Adam moments (an entry with .mu and .nu) in the optimizer state")
-    mu, _ = from_jax(adam.mu, device=device)
-    nu, _ = from_jax(adam.nu, device=device)
+    mu, _ = from_jax(_drop_masked(adam.mu), device=device)
+    nu, _ = from_jax(_drop_masked(adam.nu), device=device)
     return {"mu": mu, "nu": nu, "t": int(np.asarray(adam.count))}
 
 
@@ -174,11 +190,17 @@ def from_state_dict(sd: Dict[str, torch.Tensor], cfg: ResNetCfg, *, device="cpu"
     ``params["feature"]`` and, when present, ``params["fc"]``/``params["gnn"]``
     (GnnNet) and ``params["classifier"]`` (baseline pretraining); a ProtoNet
     state is the feature trunk alone.  Trunk blocks start at index 4 after
-    [conv1, bn1, relu, pool] (backbone.py:416-424)."""
+    [conv1, bn1, relu, pool] (backbone.py:416-424), or at 0 without a stem
+    (ResNet_fin, :487-494).  A ResNet10_FW block's noise strengths are the
+    ``(1, C, 1, 1)`` ``BN2.gamma/beta`` and ``BNshortcut.gamma/beta``
+    (FeatureWiseTransformation2d_fw, :324-325) -> ``fwt_*`` of shape
+    ``(C,)``.  The bottleneck block has no state-dict mapping, as in JAX."""
     r = _Reader(sd, device, dtype)
-    feature = {"stem_conv": r["feature.trunk.0.weight"], "stem_bn": _bn(r, "feature.trunk.1"), "stages": []}
-    stats = {"stem_bn": _bn_run(r, "feature.trunk.1"), "stages": []}
-    idx = 4
+    feature, stats, idx = {"stages": []}, {"stages": []}, 0
+    if cfg.stem:
+        feature = {"stem_conv": r["feature.trunk.0.weight"], "stem_bn": _bn(r, "feature.trunk.1"), "stages": []}
+        stats = {"stem_bn": _bn_run(r, "feature.trunk.1"), "stages": []}
+        idx = 4
     for n in cfg.stage_sizes:
         sp, ss = [], []
         for _ in range(n):
@@ -190,6 +212,10 @@ def from_state_dict(sd: Dict[str, torch.Tensor], cfg: ResNetCfg, *, device="cpu"
                 blk["conv_sc"] = r[f"{pre}.shortcut.weight"]
                 blk["bn_sc"] = _bn(r, f"{pre}.BNshortcut")
                 bs["bn_sc"] = _bn_run(r, f"{pre}.BNshortcut")
+            if cfg.block == "fwt":
+                for name, key in _FWT_KEYS:
+                    if name.endswith("2") or "conv_sc" in blk:
+                        blk[name] = r[f"{pre}.{key}"].reshape(-1)
             sp.append(blk)
             ss.append(bs)
             idx += 1
@@ -241,6 +267,11 @@ def heads_from_state_dict(sd: Dict[str, torch.Tensor], *, device="cpu", strict: 
     return params
 
 
+#: the FWT leaves and their reference state-dict keys (after ``feature.trunk.<i>.``)
+_FWT_KEYS = (("fwt_gamma2", "BN2.gamma"), ("fwt_beta2", "BN2.beta"), ("fwt_gamma_sc", "BNshortcut.gamma"),
+             ("fwt_beta_sc", "BNshortcut.beta"))
+
+
 def _put_lin(out, pre, p):
     out[f"{pre}.weight"] = p["w"]
     out[f"{pre}.bias"] = p["b"]
@@ -265,10 +296,11 @@ def to_state_dict(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
     ``params["feature"]``, the inverse of :func:`heads_from_state_dict`."""
     out: Dict[str, torch.Tensor] = {}
     if "feature" in params:
-        feat = params["feature"]
-        out["feature.trunk.0.weight"] = feat["stem_conv"]
-        _put_bn(out, "feature.trunk.1", feat["stem_bn"], stats["stem_bn"])
-        idx = 4
+        feat, idx = params["feature"], 0
+        if "stem_conv" in feat:
+            out["feature.trunk.0.weight"] = feat["stem_conv"]
+            _put_bn(out, "feature.trunk.1", feat["stem_bn"], stats["stem_bn"])
+            idx = 4
         for sp, ss in zip(feat["stages"], stats["stages"]):
             for blk, bs in zip(sp, ss):
                 pre = f"feature.trunk.{idx}"
@@ -279,6 +311,9 @@ def to_state_dict(params: dict, stats: dict) -> Dict[str, torch.Tensor]:
                 if "conv_sc" in blk:
                     out[f"{pre}.shortcut.weight"] = blk["conv_sc"]
                     _put_bn(out, f"{pre}.BNshortcut", blk["bn_sc"], bs["bn_sc"])
+                for name, key in _FWT_KEYS:
+                    if name in blk:
+                        out[f"{pre}.{key}"] = blk[name].reshape(1, -1, 1, 1)
                 idx += 1
     if "fc" in params:
         _put_lin(out, "fc.0", params["fc"]["linear"])

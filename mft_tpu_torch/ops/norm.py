@@ -109,3 +109,11 @@ def batch_norm(
     bias = params["bias"].to(x.dtype).reshape(bshape)
     y = (x - mean) * (inv * scale) + bias
     return y.reshape(shape).to(in_dtype), new_stats
+
+
+def softplus100(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus(x, beta=100)`` (reference backbone.py:154-155), written
+    as the JAX package's ``ops/norm.py`` writes it: linear once ``100 x``
+    exceeds 20."""
+    bx = 100.0 * x
+    return torch.where(bx > 20.0, x, torch.log1p(torch.exp(torch.clamp(bx, max=20.0))) / 100.0)

@@ -320,22 +320,27 @@ def _adapt_block_fused(block_p, bank_y, fmap_bank, gens, *, bcfg, tcfg, icfg: In
     if tcfg.opt_state_dtype != "bfloat16":
         raise ValueError("inner_scan='fused' stores its Adam moments in bfloat16; "
                          f"opt_state_dtype={tcfg.opt_state_dtype!r} needs inner_scan='eager'")
-    half_res = len(bcfg.stage_sizes) > 1 and bcfg.stage_sizes[-1] == 1
-    if set(block_p) != {"conv1", "bn1", "conv2", "bn2", "conv_sc", "bn_sc"} or bcfg.stage_sizes[-1] != 1:
-        raise ValueError("inner_scan='fused' adapts a single final SimpleBlock with a 1x1 shortcut conv; "
-                         f"this backbone's final stage has {bcfg.stage_sizes[-1]} block(s) with keys {sorted(block_p)}")
+    # ResNet10_FW's noise strengths ride along unchanged: without noise they
+    # take no gradient, so torch-Adam (zero moments, no decay) leaves them be
+    fwt = {k: v for k, v in block_p.items() if k.startswith("fwt_")}
+    block_p = {k: v for k, v in block_p.items() if k not in fwt}
+    half_res = bb._final_half_res(bcfg)
+    if set(block_p) != {"conv1", "bn1", "conv2", "bn2", "conv_sc", "bn_sc"}:
+        raise ValueError("inner_scan='fused' adapts a final SimpleBlock with a 1x1 shortcut conv (ResNet10, "
+                         f"ResNet10_FW); this backbone's final block (the last of a stage of {bcfg.stage_sizes[-1]}) "
+                         f"has the keys {sorted(block_p)}, an identity shortcut: use inner_scan='eager'")
     h, w_ = fmap_bank.shape[-2:]
     if h != w_ or h % (2 if half_res else 1):
         raise ValueError(f"inner_scan='fused' needs a square feature map that the stride divides, got {tuple(fmap_bank.shape)}")
     if icfg.epochs == 0:
-        return block_p
+        return {**block_p, **fwt}
     c_out, c_in = block_p["conv1"].shape[-4:-2]
     geom = fis.BlockGeom(h_in=h, c_in=c_in, c_out=c_out, stride=2 if half_res else 1, batch=icfg.batch_size)
     dev = fmap_bank.device
     idx, w = schedule if schedule is not None else lane_schedule(gens, icfg, dev)
     adapted = fis.fused_inner_scan_lanes(fis.block_to_flat(block_p), fis.bank_to_nhwc(fmap_bank), bank_y,
                                          idx.to(dev), w.to(dev), geom=geom, lr=tcfg.inner_lr)
-    return fis.flat_to_block(adapted, geom)
+    return {**fis.flat_to_block(adapted, geom), **fwt}
 
 
 def _check_modes(tcfg: TransferCfg):

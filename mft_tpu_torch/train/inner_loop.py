@@ -94,6 +94,14 @@ class _Loop:
         return pytree.tree_unflatten(self.leaves, self.spec)
 
 
+def _grads(loss, leaves):
+    """``d loss / d leaves``, zeros for a leaf the loss does not reach (as
+    under ``jax.grad``): ResNet10_FW's noise strengths, which its eval and
+    the meta fine-tune run without noise, ride the adapted block unused."""
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
 def _step(loops, loss_ofs):
     """One optimizer step of each loop: ``loss_ofs[i](params) -> scalar or
     [L]``; one autodiff pass takes the gradient of all losses' sum, so
@@ -103,7 +111,8 @@ def _step(loops, loss_ofs):
         losses = [f(pytree.tree_unflatten(live, lp.spec)) for lp, live, f in zip(loops, lives, loss_ofs)]
         losses = [v if v.dim() == 0 else v.sum() for v in losses]
         loss = sum(losses[1:], losses[0])
-        grads = iter(torch.autograd.grad(loss, [p for live in lives for p in live]))
+        flat = [p for live in lives for p in live]
+        grads = iter(_grads(loss, flat))
     with torch.no_grad():
         for lp, live in zip(loops, lives):
             g = pytree.tree_unflatten([next(grads) for _ in live], lp.spec)
@@ -214,7 +223,7 @@ def inner_fit_carry(loss_fn: Callable, params, carry, tx, gen: Optional[torch.Ge
         live = [p.requires_grad_(True) for p in leaves]
         with torch.enable_grad():
             loss, new_carry = loss_fn(pytree.tree_unflatten(live, spec), carry, idx_all[t], w_all[t])
-            grads = torch.autograd.grad(loss, live)
+            grads = _grads(loss, live)
         carry = pytree.tree_map(torch.Tensor.detach, new_carry)
         with torch.no_grad():
             frozen = pytree.tree_unflatten([p.detach() for p in live], spec)

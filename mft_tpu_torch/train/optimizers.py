@@ -114,3 +114,46 @@ def grouped(transforms: dict, labels: dict):
         return updates, new_state
 
     return Optimizer(init, update)
+
+
+def _prune(tree, mask):
+    """``tree`` without the dict entries whose ``mask`` is False (a frozen
+    leaf must be a dict entry, as every ``fwt_*`` leaf is)."""
+    if isinstance(tree, dict):
+        return {k: _prune(v, mask[k]) for k, v in tree.items() if mask[k] is not False}
+    if isinstance(tree, (list, tuple)):
+        if any(m is False for m in mask):
+            raise ValueError("freeze_masked freezes dict entries, not list elements")
+        return [_prune(v, m) for v, m in zip(tree, mask)]
+    return tree
+
+
+def _unprune(tree, mask, pruned):
+    """``tree``'s structure with ``pruned``'s leaves where ``mask`` is True
+    and zeros where it is False."""
+    if isinstance(tree, dict):
+        return {k: (torch.zeros_like(v) if mask[k] is False else _unprune(v, mask[k], pruned[k]))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_unprune(v, m, u) for v, m, u in zip(tree, mask, pruned)]
+    return pruned
+
+
+def freeze_masked(tx, trainable_mask):
+    """``tx`` on the leaves where ``trainable_mask`` is True; where it is
+    False the update is exactly zero and no optimizer state is kept (JAX
+    ``freeze_masked``, an ``optax.multi_transform`` with ``set_to_zero``):
+    torch's ``requires_grad=False`` leaves, which the reference's Adam over
+    ``model.parameters()`` never steps (backbone.py:324-325, train.py:27).
+    The state is ``tx``'s over the tree without the frozen leaves, so a
+    ``torch_adam`` state keeps its ``{"mu", "nu", "t"}`` layout, keyed by
+    the same paths (``utils/checkpoint.py``)."""
+
+    def init(params):
+        return tx.init(_prune(params, trainable_mask))
+
+    def update(grads, state, params):
+        updates, state = tx.update(_prune(grads, trainable_mask), state, _prune(params, trainable_mask))
+        return _unprune(grads, trainable_mask, updates), state
+
+    return Optimizer(init, update)

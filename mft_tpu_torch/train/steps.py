@@ -119,22 +119,38 @@ def _head_loss(params, z, *, method, gcfg, spec: EpisodeSpec):
     return gnnnet_loss(scores, spec.n_way, spec.n_query)
 
 
-def _episode_loss(params, stats, episode, *, method, bcfg, gcfg, spec: EpisodeSpec):
+def _episode_loss(params, stats, episode, *, method, bcfg, gcfg, spec: EpisodeSpec, fwt_noise=None):
     """One episode ``[n_way, s+q, 3, H, W]`` -> ``(loss, new_stats)``: one
     train-mode embedding pass over the whole episode (the reference trains
-    with BN in batch-stats mode and its running stats update, train.py:167)."""
+    with BN in batch-stats mode and its running stats update, train.py:167).
+    ``fwt_noise``: this episode's FWT draws (``bb.draw_fwt_noise``)."""
     feats, new_stats = bb.apply_backbone(params["feature"], stats, flatten_episode(episode), cfg=bcfg, train=True,
-                                         update_stats=True)
+                                         update_stats=True, fwt_noise=fwt_noise)
     z = feats.reshape(spec.n_way, spec.n_per_class, -1)
     return _head_loss(params, z, method=method, gcfg=gcfg, spec=spec), new_stats
 
 
-def episodic_train_step(params, stats, opt_state, episodes, *, method, bcfg, gcfg, spec: EpisodeSpec, tx):
-    """episodes ``[E, n_way, s+q, 3, H, W]``; loss and stat updates averaged over E."""
+def episodic_train_step(params, stats, opt_state, episodes, *, method, bcfg, gcfg, spec: EpisodeSpec, tx,
+                        fwt_noise=None):
+    """episodes ``[E, n_way, s+q, 3, H, W]``; loss and stat updates averaged over E.
+
+    ``fwt_noise`` (ResNet10_FW): a ``torch.Generator`` that draws each
+    episode's noise for every block (``bb.draw_fwt_noise``, episode by
+    episode), or the ``E`` episodes' draws; the JAX step splits its key per
+    episode and per block (steps.py:108, backbone.py:332).  This is the one
+    step that draws FWT noise, as in JAX."""
+    noise = [None] * len(episodes)
+    if bcfg.block == "fwt" and fwt_noise is not None:
+        if isinstance(fwt_noise, torch.Generator):
+            noise = [bb.draw_fwt_noise(fwt_noise, bcfg, device=episodes.device) for _ in range(len(episodes))]
+        elif len(fwt_noise) != len(episodes):
+            raise ValueError(f"fwt_noise holds {len(fwt_noise)} episodes' draws for {len(episodes)} episodes")
+        else:
+            noise = list(fwt_noise)
 
     def batch_loss(p):
-        losses, new_stats = zip(*(_episode_loss(p, stats, ep, method=method, bcfg=bcfg, gcfg=gcfg, spec=spec)
-                                  for ep in episodes))
+        losses, new_stats = zip(*(_episode_loss(p, stats, ep, method=method, bcfg=bcfg, gcfg=gcfg, spec=spec,
+                                                fwt_noise=nz) for ep, nz in zip(episodes, noise)))
         return torch.stack(losses).mean(), _tree_mean(new_stats)
 
     loss, new_stats, grads = _value_and_grad(batch_loss, params)

@@ -99,10 +99,10 @@ def test_entry_point_needs_a_card_unless_cpu_is_asked(tmp_path):
     assert len(res.accs) == 1 and 0.0 <= res.accs[0] <= 100.0
     with pytest.raises(NotImplementedError, match="--method relationnet"):
         finetune.main(["--device", "cpu", "--method", "relationnet", "--test_dataset", "synthetic"])
-    # the JAX driver's other backbones are not ported yet (the port takes every flag of its driver)
-    with pytest.raises(NotImplementedError, match="--model ResNet18"):
+    # the registry's split-backbone pieces have no driver path, as in the JAX package
+    with pytest.raises(SystemExit, match="the drivers run"):
         finetune.main(["--device", "cpu", "--method", "all", "--test_dataset", "synthetic", "--eval_batch", "2",
-                       "--model", "ResNet18"])
+                       "--model", "ResNet_fin"])
 
 
 def test_port_imports_neither_jax_nor_mft_tpu():

@@ -169,8 +169,8 @@ def test_refusals(tmp_path):
         res = train.main(COMMON + ["--method", "dampnet_full_class", "--n_shot", "2", "--n_query", "2",
                                    "--episodes_per_epoch", "1", "--stop_epoch", "0", "--paths_json", pj])
     assert len(res.losses) == 1 and np.isfinite(res.losses[0])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        train.main(COMMON + ["--model", "ResNet10_FW"])
+    with pytest.raises(SystemExit, match="the drivers run"):  # the split-backbone pieces have no driver path
+        train.main(COMMON + ["--model", "ResNet8"])
     for flag in (["--eval_batch", "2"], ["--trace_dir", "x"], ["--unsupervised", "x"]):  # eval-only flags
         with pytest.raises(SystemExit):
             train.main(COMMON + flag)
