@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mft_tpu_torch``) on one NVIDIA card.
 
-Run from the root of a checkout: ``python3 chip_smoke.py`` (``--kernels-only`` stops after phase 3).  It needs a
+Run from the root of a checkout: ``python3 chip_smoke.py`` (``--kernels-only`` stops after phase 3;
+``--mesh-scaling`` builds the kernels, then runs only the eval's mesh on 1, 2, 4, ... of the visible
+cards).  It needs a
 CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and nothing else
 of the JAX package; it imports no ``jax``.  Phases, any failure exits
 non-zero:
@@ -89,7 +91,18 @@ non-zero:
    ResNet10_FW ``--inner_scan fused`` (both kernels' launches counted and
    above 0) and ResNet18 ``--inner_scan eager`` (the edge kernel's) for two
    batches each, ResNet34 eager for one (its warm-up included), each with
-   one more batch under the profiler (idle share, kernel times);
+   one more batch under the profiler (idle share, kernel times); then the
+   interop and mesh phase: the seeded baseline and GnnNet checkpoints
+   written again as JAX-layout ``.ckpt`` files into a directory without a
+   ``.tar``, two ``--eval_batch 5`` batches from there (launch counts set to
+   0 before and read after) whose scores must equal, bit for bit, the same
+   batches from the ``.tar`` files (run twice for their rerun spread; the
+   lane rule of phase 4 where the reruns differ), ``import_ckpt`` then
+   ``export_ckpt`` with every tensor bit-equal to the seeded originals, a
+   DampNet-sized ``.ckpt`` written and read onto the card (seconds), a mesh
+   of two shards on ``cuda:0`` (global batch 10, launch counts, seconds per
+   episode) against the unsharded batches, and the native decoder's backend
+   (and, where it is native, its host seconds on 480 JPEGs beside PIL's);
 6. drive the training path through ``mft_tpu_torch.cli.train.main`` at full
    width on the synthetic dataset (baseline, batch 16; episodic GnnNet
    ``--train_aug --use_pallas``; ``--fine_tune`` resumed from its
@@ -109,8 +122,9 @@ training path and, for the edge kernel, one training step's forward times
 and its plain backward's; launches on the 50-shot main path and its times
 and bounds, and train_50's; launches on the 5-lane paths and a lane
 batch's times and bounds; launches and the profiled batch's device time on
-the ResNet10_FW, ResNet18 and ResNet34 lane paths, and launches in
-ResNet10_FW's training); the last line is
+the ResNet10_FW, ResNet18 and ResNet34 lane paths, launches in
+ResNet10_FW's training, and launches on the ``.ckpt``-driven and mesh
+runs); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1969,7 +1983,7 @@ def phase_backbone_evals(torch, kernels, finetune, rows, pj: str):
     the kernels' device time in the batch)."""
     for i, (model, _, _, _) in enumerate(BACKBONE_EVALS):
         write_backbone_checkpoints(torch, os.path.dirname(pj), model, torch.Generator().manual_seed(10 + i))
-    common = ["--device", "cuda", "--method", "all", "--use_pallas", "--test_dataset", "synthetic", "--image_size",
+    common = ["--device", "cuda:0", "--method", "all", "--use_pallas", "--test_dataset", "synthetic", "--image_size",
               "224", "--gen_examples", "17", "--fine_tune_epoch", "5", "--n_shot", "5", "--eval_batch", str(LANES),
               "--paths_json", pj]
     for model, scan, episodes, key in BACKBONE_EVALS:
@@ -1988,6 +2002,317 @@ def phase_backbone_evals(torch, kernels, finetune, rows, pj: str):
             row[f"launches_{key}"] = counts[row["name"]]
             row[f"ms_{key}"] = prof["edge_ms" if row["name"] == "edge_abs_diff_matmul" else "scan_ms"] or None
         mark(f"{model} lane eval and profile")
+
+
+#: the interop and mesh phase: lane batches of each run (the first the warm-up), the main path's widths, the
+#: mesh's shards on the one card (each in its own worker process), the JPEGs of the decode timing (a
+#: save_features sweep's)
+INTEROP_BATCHES = 2
+INTEROP_WIDTHS = ["--image_size", "224", "--gen_examples", "17", "--fine_tune_epoch", "5"]
+MESH_SHARDS = 2
+DECODE_IMAGES = 480
+
+
+def eval_scores(torch, finetune, label: str, argv, episodes: int, mesh_devices=None):
+    """``episodes`` episodes through the eval driver (``mesh_devices``: its
+    episode mesh), with the launch counts set to 0 before.  Returns
+    ``(result, scores [episodes, q, n_way] on the CPU in episode order,
+    steady seconds per episode, launch counts)``: the steady time is the
+    batches after the first (warm-up) over their episodes; the counts are
+    this process's and, on a wider mesh, its worker processes' summed."""
+    from mft_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = finetune.main(argv + ["--iter_num", str(episodes)], mesh_devices=mesh_devices, keep_scores=True)
+    counts = {k: n + res.worker_launches.get(k, 0) for k, n in kernels.launch_counts().items()}
+    accs = [float(v) for v in res.accs]
+    if len(accs) != episodes or len(res.scores) != episodes or not all(
+            math.isfinite(v) and 0 <= v <= 100 for v in accs):
+        fail(f"{label}: {len(accs)} accuracies, {len(res.scores)} score sets for {episodes} episodes: {accs}")
+    scores = torch.stack(res.scores)
+    if not bool(torch.isfinite(scores).all()):
+        fail(f"{label}: scores not finite")
+    first = round(res.batch_seconds[0] / res.seconds[0])  # the first batch's episodes
+    steady = sum(res.batch_seconds[1:]) / (episodes - first) if first < episodes else res.batch_seconds[0] / first
+    print(f"{label}: {episodes} episodes in {len(res.batch_seconds)} batches of {first}, seconds per batch "
+          f"{[round(t, 4) for t in res.batch_seconds]} (the first includes warm-up); steady seconds/episode {steady:.4f}; "
+          f"peak device memory of this process {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return res, scores, steady, counts
+
+
+def scores_rule(torch, label: str, got, want, rerun_spread: float) -> str:
+    """Which rule ``got`` meets against ``want``: bit-equality, which must hold
+    where the same batch reruns bit for bit (``rerun_spread`` 0); else phase
+    4's lane rule (no score more than XDEV_LANE_CAP away, the same argmax
+    wherever ``want``'s top two lie more than XDEV_LANE_MARGIN apart)."""
+    diff = float((got - want).abs().max())
+    if diff == 0.0:
+        return "bit-equal"
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > XDEV_LANE_MARGIN
+    flipped = (got.argmax(-1) != want.argmax(-1)) & clear
+    print(f"{label}: max |d scores| {diff:.3e}, {int(flipped.sum())} clear argmax flips; the same batch's own rerun "
+          f"spread {rerun_spread:.3e}")
+    if rerun_spread == 0.0:
+        fail(f"{label}: scores differ by {diff:.3e} while the same batch reruns bit for bit")
+    if diff > XDEV_LANE_CAP or bool(flipped.any()):
+        fail(f"{label}: scores differ by {diff:.3e} with {int(flipped.sum())} clear argmax flips (lane rule: "
+             f"{XDEV_LANE_CAP:g}, none beyond a {XDEV_LANE_MARGIN:g} gap)")
+    return "phase 4's lane rule (the card's reruns are not bit-equal)"
+
+
+def phase_interop_and_mesh(torch, finetune, rows, pj: str, dev):
+    """The JAX checkpoint format and the episode mesh on the main path, at
+    full width with ``--eval_batch 5`` (``--method all --use_pallas
+    --inner_scan fused``):
+
+    * the seeded baseline and GnnNet checkpoints written again as JAX-layout
+      ``.ckpt`` files (``save_flax_checkpoint``) into a directory without a
+      ``.tar``; the driver's models from both directories equal tensor for
+      tensor; INTEROP_BATCHES batches from the ``.ckpt`` files (the first the
+      warm-up), as many times MESH_SHARDS from the ``.tar`` files (the mesh's
+      episodes), and the ``.tar`` run's first INTEROP_BATCHES again for its
+      rerun spread: the ``.ckpt`` run's scores
+      equal the ``.tar`` run's bit for bit (or, if the reruns differ, by
+      the lane rule), its launch counts (set to 0 before, read after) the
+      scan's once and the edge kernel's three times a batch;
+    * ``import_ckpt`` (``.ckpt`` -> the port's ``.tar``) then ``export_ckpt``
+      (-> a reference ``.tar``): every tensor bit-equal to the seeded
+      original; a DampNet-sized (``dampnet_full_class``) ``.ckpt`` written
+      and read onto the card, timed;
+    * a mesh of MESH_SHARDS shards on ``dev`` (``cuda:0`` twice: two worker
+      processes on the one card), global batch twice ``--eval_batch``, for
+      INTEROP_BATCHES global batches, every
+      episode against the unsharded batches of it (bit-equal, or the lane rule
+      where the unsharded reruns differ), with its launch counts and
+      seconds per episode beside the unsharded run's;
+    * the native decode backend ``auto`` picks, and why; where it is native,
+      the host seconds to decode DECODE_IMAGES JPEGs beside PIL's."""
+    from mft_tpu_torch.cli import export_ckpt, import_ckpt
+    from mft_tpu_torch.convert import load_tar
+    from mft_tpu_torch.methods import dampnet as dn
+    from mft_tpu_torch.models import backbone as bb
+    from mft_tpu_torch.train import optimizers as opt
+    from mft_tpu_torch.utils import checkpoint as ckpt
+
+    save_dir = os.path.dirname(pj)
+    ckpt_root = os.path.join(save_dir, "jax_layout")
+    originals = {}  # the .ckpt files and the seeded .tar each came from
+    for sub in ("ResNet10_baseline", "ResNet10_gnnnet_aug_5way_5shot"):
+        d = os.path.join(save_dir, "checkpoints", "miniImageNet", sub)
+        for name in (n for n in os.listdir(d) if n.endswith(".tar")):
+            epoch, p, s, _ = ckpt.load_checkpoint(os.path.join(d, name), bb.resnet10(), None)
+            out = ckpt.save_flax_checkpoint(os.path.join(ckpt_root, "checkpoints", "miniImageNet", sub), epoch, p, s)
+            originals[out] = os.path.join(d, name)
+    pj_ckpt = os.path.join(ckpt_root, "paths.json")
+    with open(pj_ckpt, "w") as f:
+        json.dump({"save_dir": ckpt_root}, f)
+    files = [n for _, _, names in os.walk(ckpt_root) for n in names]
+    if any(n.endswith(".tar") for n in files):
+        fail(f"the .ckpt directory holds a .tar: {files}")
+    print(f"interop: {len(originals)} seeded checkpoints written as JAX-layout .ckpt files: "
+          f"{sorted(os.path.relpath(k, ckpt_root) for k in originals)}")
+    models = {}
+    for tag, path in (("tar", pj), ("ckpt", pj_ckpt)):
+        a = finetune.cfg_mod.parse_finetune_args(["--method", "all", "--paths_json", path])
+        models[tag] = ckpt.keyed(finetune.build_models(a, finetune.cfg_mod.Paths.load(path), bb.resnet10(), dev))
+    if sorted(models["tar"]) != sorted(models["ckpt"]) or not all(
+            torch.equal(models["tar"][k], models["ckpt"][k]) for k in models["tar"]):
+        fail("the eval's models from the .ckpt files differ from those of the .tar files")
+    print(f"interop: the eval's {len(models['tar'])} model tensors from the .ckpt files equal the .tar files' "
+          "(torch.equal)")
+
+    argv = ["--device", str(dev), "--method", "all", "--use_pallas", "--inner_scan", "fused", "--test_dataset",
+            "synthetic", "--model", "ResNet10", *INTEROP_WIDTHS, "--n_shot", "5", "--eval_batch", str(LANES)]
+    episodes = INTEROP_BATCHES * LANES
+    # as many episodes as the mesh below takes, so that every mesh episode, the timed ones too, has its answer
+    _, tar1, tar_s, _ = eval_scores(torch, finetune, "interop: from .tar", argv + ["--paths_json", pj],
+                                    INTEROP_BATCHES * MESH_SHARDS * LANES)
+    _, from_ckpt, ckpt_s, counts = eval_scores(torch, finetune, "interop: from .ckpt alone",
+                                               argv + ["--paths_json", pj_ckpt], episodes)
+    want = {"edge_abs_diff_matmul": 3 * INTEROP_BATCHES, "fused_inner_scan": INTEROP_BATCHES}
+    print(f"interop: .ckpt run kernel launches {counts} ({INTEROP_BATCHES} batches; want {want})")
+    if counts != want:
+        fail(f"the .ckpt-driven eval launched {counts}, not {want}")
+    for row in rows:
+        row["launches_ckpt"] = counts[row["name"]]
+    _, tar2, _, _ = eval_scores(torch, finetune, "interop: from .tar, rerun", argv + ["--paths_json", pj], episodes)
+    spread = float((tar2 - tar1[:episodes]).abs().max())
+    rule = scores_rule(torch, "interop: .ckpt vs .tar scores", from_ckpt, tar1[:episodes], spread)
+    print(f"interop: .ckpt-driven scores vs the .tar run's ({episodes} episodes x {tar1.shape[1]} queries): {rule}; "
+          f"the .tar run's own rerun spread {spread:.3e}; seconds/episode .ckpt {ckpt_s:.4f} vs .tar {tar_s:.4f} "
+          f"(same call)")
+    mark("interop: the eval from .ckpt files")
+
+    # round trips: .ckpt -> the port's .tar -> a reference .tar, against the seeded originals
+    for src, orig in sorted(originals.items()):
+        out = os.path.join(save_dir, "round_trip", os.path.basename(os.path.dirname(src)))
+        if import_ckpt.main([src, "--model", "ResNet10", "--out_dir", out]) != 0:
+            fail(f"import_ckpt {src} failed")
+        imported = os.path.join(out, os.path.basename(src).replace(".ckpt", ".tar"))
+        ref = imported.replace(".tar", ".reference.tar")
+        if export_ckpt.main([imported, "--model", "ResNet10", "--out", ref]) != 0:
+            fail(f"export_ckpt {imported} failed")
+        _, want_sd = load_tar(orig)
+        for path, extra in ((imported, {"adam"}), (ref, set())):
+            blob = torch.load(path, map_location="cpu", weights_only=True)
+            got = blob["state"]
+            same = set(blob) == {"epoch", "state"} | extra and sorted(got) == sorted(want_sd) and all(
+                got[k].dtype == want_sd[k].dtype and torch.equal(got[k], want_sd[k]) for k in want_sd)
+            if not same:
+                fail(f"round trip {orig} -> {src} -> {path}: not every tensor bit-equal to the original")
+        print(f"interop: round trip {os.path.relpath(orig, save_dir)} -> .ckpt -> import_ckpt -> export_ckpt: "
+              f"{len(want_sd)} tensors bit-equal to the seeded original")
+    g = torch.Generator().manual_seed(7)
+    dcfg = dn.method_cfg("dampnet_full_class", 512, 5, 5)
+    feature, stats = bb.init_backbone(g, bb.resnet10())
+    dparams, dstate = dn.init_dampnet(g, dcfg)
+    params = {"feature": feature, **dparams}
+    n_weights = sum(t.numel() for t in ckpt.keyed(params).values())
+    t0 = time.perf_counter()
+    path = ckpt.save_flax_checkpoint(os.path.join(save_dir, "dampnet_sized"), 0, params, stats, damp_state=dstate)
+    write_s = time.perf_counter() - t0
+    template = opt.torch_adam(1e-3).init(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, p2, _, o2, d2 = ckpt.load_checkpoint(path, bb.resnet10(), template, device=dev,
+                                            damp_template=dn.fresh_state(dcfg, device=dev))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    if not (torch.equal(p2["W_R"].cpu(), params["W_R"]) and o2["t"] == 0 and set(d2) == set(dstate)):
+        fail("the DampNet-sized .ckpt did not read back")
+    print(f"interop: a DampNet-sized .ckpt (dampnet_full_class, {n_weights / 1e6:.1f} M weights, "
+          f"{os.path.getsize(path) / 2**30:.3f} GiB with its Adam moments): written in {write_s:.3f} s, read onto the "
+          f"card in {read_s:.3f} s (host clock, file in the page cache)")
+    del p2, o2, d2, template, params, dparams
+    os.remove(path)
+    mark("interop: round trips and the DampNet-sized .ckpt")
+
+    # the mesh: two shards on the one card against the unsharded batches of the same episodes
+    argv_tar = argv + ["--paths_json", pj]
+    mesh_devices = [str(dev)] * MESH_SHARDS
+    res_m, mesh_scores, mesh_s, counts = eval_scores(torch, finetune, f"mesh of {mesh_devices}", argv_tar,
+                                                     INTEROP_BATCHES * MESH_SHARDS * LANES, mesh_devices=mesh_devices)
+    shards = INTEROP_BATCHES * MESH_SHARDS
+    want = {"edge_abs_diff_matmul": 3 * shards, "fused_inner_scan": shards}
+    print(f"mesh: kernel launches {counts} ({INTEROP_BATCHES} global batches of {MESH_SHARDS} shards; want {want})")
+    if counts != want or len(res_m.batch_seconds) != INTEROP_BATCHES:
+        fail(f"the mesh launched {counts} in {len(res_m.batch_seconds)} global batches, not {want} in "
+             f"{INTEROP_BATCHES}")
+    for row in rows:
+        row["launches_mesh"] = counts[row["name"]]
+    rule = scores_rule(torch, "mesh vs unsharded scores", mesh_scores, tar1, spread)
+    print(f"mesh: {MESH_SHARDS} shards, global batch {MESH_SHARDS * LANES}, scores of all {len(tar1)} episodes "
+          f"(warm-up and timed batches) vs the unsharded --eval_batch {LANES} batches: {rule}; the unsharded rerun spread "
+          f"{spread:.3e}; seconds/episode mesh {mesh_s:.4f} vs unsharded {tar_s:.4f} (same call, one card)")
+    mark("mesh")
+
+    from mft_tpu_torch.data import native_decode
+    from mft_tpu_torch.data.pipeline import WORKERS, decode_image
+
+    name, why = native_decode.describe()
+    print(f"decode: MFT_NATIVE_DECODE=auto picks {name}: {why}")
+    if name != "native":
+        print("decode: no native timing (the PIL path serves the pipeline)")
+        return
+    import concurrent.futures as cf
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(11)
+    img_dir = os.path.join(save_dir, "jpegs")
+    os.makedirs(img_dir)
+    paths = []
+    grad = np.linspace(0, 255, 600, dtype=np.float32)
+    for i in range(DECODE_IMAGES):  # ISIC-sized 600 x 450 photographs: a smooth field with noise
+        arr = (grad[None, :, None] * 0.5 + rs.randint(0, 128, (450, 1, 3))).clip(0, 255).astype(np.uint8)
+        arr = np.broadcast_to(arr, (450, 600, 3)) + rs.randint(0, 16, (450, 600, 3), dtype=np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=90)
+        paths.append(os.path.join(img_dir, f"{i:04d}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(buf.getvalue())
+    out = {}
+    with cf.ThreadPoolExecutor(WORKERS) as pool:
+        for backend in ("native", "pil", "native"):
+            os.environ["MFT_NATIVE_DECODE"] = "1" if backend == "native" else "0"
+            t0 = time.perf_counter()
+            imgs = native_decode.decode_many(paths, 257, pool=pool, workers=WORKERS, fallback=decode_image)
+            out.setdefault(backend, []).append(time.perf_counter() - t0)
+            if backend == "pil":
+                pil_imgs = imgs
+    os.environ.pop("MFT_NATIVE_DECODE")
+    if not all(np.array_equal(a, b) for a, b in zip(imgs, pil_imgs)):
+        fail("the native decode differs from PIL on the timing's JPEGs")
+    print(f"decode (host, {WORKERS} workers, {DECODE_IMAGES} JPEGs of 600 x 450 to 257 x 257): native "
+          f"{min(out['native']):.3f} s, PIL {out['pil'][0]:.3f} s; outputs bit-identical")
+
+
+#: --mesh-scaling: global batches of the widest mesh (the first the warm-up)
+SCALING_BATCHES = 3
+
+
+def phase_mesh_scaling(torch, finetune):
+    """The eval's mesh across cards (``--mesh-scaling``): the headline eval at
+    full width (``--method all --use_pallas --inner_scan fused --eval_batch
+    5``) on meshes of 1, 2, 4, ... of the visible cards, each for the same
+    SCALING_BATCHES global batches of the widest mesh, one card run first and
+    last; every width's scores held against the one-card run's (bit-equal, or
+    the lane rule where the one-card reruns differ), its launch counts
+    exact, its steady episodes per second beside one card's, and the seconds
+    each shard spent in its worker beside its global batch's.  The widest
+    mesh runs a second time with one intra-op thread a worker (the parent's
+    count, which the workers take, set to 1)."""
+    n = torch.cuda.device_count()
+    widths = [1]
+    while widths[-1] * 2 <= n:
+        widths.append(widths[-1] * 2)
+    episodes = SCALING_BATCHES * widths[-1] * LANES
+    threads = torch.get_num_threads()
+    print(f"mesh scaling: host of {os.cpu_count()} cores, {len(os.sched_getaffinity(0))} in this process's affinity, "
+          f"{threads} intra-op threads")
+    runs = [(w, threads) for w in widths] + [(widths[-1], 1), (1, threads)]
+    results = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as save_dir:
+        pj = write_checkpoints(torch, save_dir)
+        argv = ["--device", "cuda", "--method", "all", "--use_pallas", "--inner_scan", "fused", "--test_dataset",
+                "synthetic", "--model", "ResNet10", *INTEROP_WIDTHS, "--n_shot", "5", "--eval_batch", str(LANES),
+                "--paths_json", pj]
+        for w, t in runs:
+            devices = [f"cuda:{i}" for i in range(w)]
+            torch.set_num_threads(t)
+            res, scores, steady, counts = eval_scores(torch, finetune, f"mesh of {devices}, {t} threads", argv,
+                                                      episodes, mesh_devices=devices)
+            torch.set_num_threads(threads)
+            shards = episodes // LANES
+            want = {"edge_abs_diff_matmul": 3 * shards, "fused_inner_scan": shards}
+            if counts != want:
+                fail(f"the mesh of {devices} launched {counts}, not {want}")
+            if res.shard_seconds:
+                steady_shards = [x for batch in res.shard_seconds[1:] for x in batch]
+                print(f"mesh of {w} cards, {t} threads: seconds of a shard in its worker, steady batches: mean "
+                      f"{sum(steady_shards) / len(steady_shards):.4f}, max {max(steady_shards):.4f}; of a global "
+                      f"batch {sum(res.batch_seconds[1:]) / (len(res.batch_seconds) - 1):.4f}")
+            results.append({"devices": w, "threads": t, "scores": scores, "steady": steady})
+    one, again = results[0], results[-1]
+    spread = float((again["scores"] - one["scores"]).abs().max())
+    base = (one["steady"] + again["steady"]) / 2
+    lines = []
+    for r in results[1:-1]:
+        rule = scores_rule(torch, f"mesh of {r['devices']} cards vs one card", r["scores"], one["scores"], spread)
+        lines.append({"devices": r["devices"], "worker_threads": r["threads"], "seconds_per_episode": r["steady"],
+                      "episodes_per_second": 1 / r["steady"], "vs_one_card": base / r["steady"], "rule": rule})
+        print(f"mesh scaling: {r['devices']} cards ({r['threads']} threads a worker), global batch "
+              f"{r['devices'] * LANES}: {1 / r['steady']:.4f} episodes/s against one card's {1 / one['steady']:.4f} / "
+              f"{1 / again['steady']:.4f} (first / last run): {base / r['steady']:.3f} x; scores of all {episodes} "
+              f"episodes vs one card: {rule}")
+    print(json.dumps({"mesh_scaling": {"episodes": episodes, "one_card_seconds_per_episode":
+                                       [one["steady"], again["steady"]], "one_card_rerun_spread": spread,
+                                       "meshes": lines}}))
 
 
 def drive(torch, finetune, label: str, argv, episodes: int) -> float:
@@ -2290,7 +2615,7 @@ def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
     op), one profiled episode; then one episode each of ``--unsupervised
     synthetic`` and ``--dampnet_eval nofinetune`` (neither adapts: no
     scan)."""
-    damp = ["--device", "cuda", "--method", "dampnet_full_class", "--train_aug", "--inner_scan", "fused", "--eval_batch", "1",
+    damp = ["--device", "cuda:0", "--method", "dampnet_full_class", "--train_aug", "--inner_scan", "fused", "--eval_batch", "1",
             "--dataset", "synthetic", "--test_dataset", "synthetic", "--model", "ResNet10", "--image_size", "224",
             "--n_shot", "5", "--gen_examples", "17", "--fine_tune_epoch", "5", "--paths_json", paths_json]
     kernels.reset_launch_counts()
@@ -2350,6 +2675,15 @@ def main():
 
     mark("build")
 
+    if "--mesh-scaling" in sys.argv[1:]:  # the eval's mesh across every visible card, against one card
+        for line in smi.stdout.strip().splitlines()[1:]:
+            print(line)
+        phase_mesh_scaling(torch, finetune)
+        mark("mesh scaling")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+
     # 3. every kernel against its plain version
     rows = [phase_edge_kernel(torch, dev)]
     mark("edge kernel checks")
@@ -2376,7 +2710,8 @@ def main():
     # 5. the main path at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
         pj = write_checkpoints(torch, save_dir)
-        base = ["--device", "cuda", "--method", "all", "--use_pallas", "--test_dataset", "synthetic",
+        # cuda:0: one card's eval (a plain cuda would span every visible card)
+        base = ["--device", "cuda:0", "--method", "all", "--use_pallas", "--test_dataset", "synthetic",
                 "--model", "ResNet10", "--image_size", "224", "--gen_examples", "17", "--fine_tune_epoch", "5",
                 "--paths_json", pj]
         common = base + ["--n_shot", "5", "--eval_batch", "1"]  # one episode a batch: comparable with earlier runs
@@ -2479,6 +2814,7 @@ def main():
                 fail(f"kernel {row['name']} was never launched on the 50-shot lane path")
         mark("lane evals: frozen, 50-shot")
         phase_backbone_evals(torch, kernels, finetune, rows, pj)
+        phase_interop_and_mesh(torch, finetune, rows, pj, dev)
 
     # 6. the training path at full width, then one eval episode from the checkpoints it wrote
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as save_dir:
@@ -2508,7 +2844,7 @@ def main():
              "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet",
              "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_lanes50",
              "ms_lanes50", "bound_ms_lanes50", "launches_fw", "ms_fw", "launches_r18", "ms_r18", "launches_r34",
-             "ms_r34", "launches_train_fw"]
+             "ms_r34", "launches_train_fw", "launches_ckpt", "launches_mesh"]
     # keys of a path that a kernel off that path (or a number this run does not measure) leaves null
     print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,6 @@ import torch
 
 from mft_tpu_torch import config as cfg_mod
 from mft_tpu_torch import resolve_device
-from mft_tpu_torch.convert import from_state_dict, load_tar
 from mft_tpu_torch.data import registry
 from mft_tpu_torch.data.feature_store import save_features
 from mft_tpu_torch.data.pipeline import WORKERS, decode_image
@@ -72,8 +71,7 @@ def main(argv=None) -> SaveResult:
     path = ckpt.get_assigned_file(d, a.save_iter) if a.save_iter != -1 else ckpt.get_best_file(d)
     if path is None or not os.path.exists(path):
         raise FileNotFoundError(f"checkpoint {path!r} not found")
-    _, sd = load_tar(path)
-    params, stats = from_state_dict(sd, bcfg, device=device)
+    _, params, stats, _ = ckpt.load_checkpoint(path, bcfg, None, device=device)
     manifest = registry.build_manifest(registry.get(a.dataset), paths.as_dict(), split=a.split)
     items, dt = manifest.items, pipeline_dtype(bcfg.compute_dtype)
     feats = []

@@ -23,6 +23,13 @@ reference's ``.tar`` state dicts.
   dict (plain attributes there): ``utils/checkpoint.py`` keeps them beside it; :func:`load_tar` / :func:`save_tar` read and write the
   ``{'epoch', 'state'}`` files that the reference's train.py and
   ``mft_tpu.cli.export_ckpt`` write.
+* The raw flax state dicts of a JAX ``.ckpt`` file (``utils/flax_msgpack.py``
+  reads them): :func:`adam_from_state_dict` / :func:`adam_to_state_dict`
+  carry the optimizer state (``torch_adam``'s chain and ``freeze_masked``'s
+  ``multi_transform``) in that form, :func:`sorted_state_dict` lays a tree out
+  as the JAX package's ``save_checkpoint`` writes it, and
+  :func:`damp_state_from_jax` / :func:`damp_state_to_jax` carry DampNet's
+  state by name.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from mft_tpu_torch.models.backbone import ResNetCfg
+from mft_tpu_torch.utils.flax_msgpack import listify
 
 #: DampNet's recovery modules in the reference's state dict (methods/dampnet.py:32-45,
 #: dampnet_full_class.py:33-46)
@@ -86,9 +94,10 @@ def to_jax(params, stats=None):
 
 def _drop_masked(tree):
     """A moment tree of a masked optax state without its frozen entries:
-    optax keeps an empty ``MaskedNode`` tuple where a leaf is frozen."""
+    optax keeps an empty ``MaskedNode`` tuple where a leaf is frozen, which
+    a flax state dict (a ``.ckpt`` file) holds as the empty map ``{}``."""
     if isinstance(tree, dict):
-        return {k: _drop_masked(v) for k, v in tree.items() if not (isinstance(v, tuple) and len(v) == 0)}
+        return {k: _drop_masked(v) for k, v in tree.items() if not (isinstance(v, (tuple, dict)) and len(v) == 0)}
     if isinstance(tree, list):
         return [_drop_masked(v) for v in tree]
     return tree
@@ -116,6 +125,78 @@ def adam_to_jax(state: dict) -> dict:
     """Inverse of :func:`adam_from_jax`: ``{"count", "mu", "nu"}`` with numpy
     leaves in the JAX layout (the caller rebuilds the optax state from them)."""
     return {"count": int(state["t"]), "mu": to_jax(state["mu"])[0], "nu": to_jax(state["nu"])[0]}
+
+
+# --------------------------------------------------------------------------
+# raw flax state dicts (what a JAX ``.ckpt`` file holds)
+# --------------------------------------------------------------------------
+
+
+def adam_from_state_dict(opt_sd: dict, *, device="cpu") -> dict:
+    """The raw flax state dict of the JAX driver's optimizer (a ``.ckpt``
+    file's ``opt_state``) -> the port's ``{"mu", "nu", "t"}``, equal to
+    :func:`adam_from_jax` of the same state.  ``torch_adam``'s chain is
+    ``{"0": {"count", "mu", "nu"}, "1": {}}``; ``freeze_masked`` wraps it as
+    ``{"inner_states": {"freeze": {"inner_state": {}}, "train":
+    {"inner_state": <the chain>}}}`` with each frozen moment ``{}``."""
+    if "inner_states" in opt_sd:
+        opt_sd = opt_sd["inner_states"]["train"]["inner_state"]
+    adam = next((opt_sd[k] for k in sorted(opt_sd, key=int) if {"count", "mu", "nu"} <= set(opt_sd[k])), None)
+    if adam is None:
+        raise ValueError(f"no Adam moments (an entry with count, mu and nu) in the optimizer state {sorted(opt_sd)}")
+    mu, _ = from_jax(_drop_masked(listify(adam["mu"])), device=device)
+    nu, _ = from_jax(_drop_masked(listify(adam["nu"])), device=device)
+    return {"mu": mu, "nu": nu, "t": int(np.asarray(adam["count"]))}
+
+
+def _keyed(tree, pre=()) -> dict:
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _keyed(sub, pre + (key,)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _keyed(sub, pre + (i,)).items()}
+    return {pre: tree}
+
+
+def _state_dict_like(params, flat: dict, pre=()):
+    """``params``' structure as a flax state dict (lists -> ``{"0": ...}``)
+    with the leaves of ``flat`` (keyed by path); a leaf ``flat`` lacks is
+    ``{}``, optax's ``MaskedNode``."""
+    if isinstance(params, dict):
+        return {k: _state_dict_like(v, flat, pre + (k,)) for k, v in sorted(params.items())}
+    if isinstance(params, (list, tuple)):
+        return {str(i): _state_dict_like(v, flat, pre + (i,)) for i, v in enumerate(params)}
+    return flat.get(pre, {})
+
+
+def sorted_state_dict(tree) -> dict:
+    """``tree`` as the flax state dict that the JAX package's
+    ``save_checkpoint`` writes: lists -> ``{"0": ...}``, dict keys sorted (as
+    ``jax.tree.map`` sorts them)."""
+    return _state_dict_like(tree, _keyed(tree))
+
+
+def adam_to_state_dict(state: dict, params: dict) -> dict:
+    """Inverse of :func:`adam_from_state_dict`: the port's Adam state over
+    ``params`` (numpy leaves in the JAX layout, dict keys sorted as
+    ``jax.tree.map`` sorts them).  Where ``params`` has leaves the moments
+    lack (``freeze_masked``'s frozen ones), the ``freeze_masked`` layout."""
+    mu, nu = (_keyed(to_jax(state[k])[0]) for k in ("mu", "nu"))
+    chain = {"0": {"count": np.asarray(int(state["t"]), np.int32), "mu": _state_dict_like(params, mu),
+                   "nu": _state_dict_like(params, nu)}, "1": {}}
+    if set(mu) == set(_keyed(params)):
+        return chain
+    return {"inner_states": {"freeze": {"inner_state": {}}, "train": {"inner_state": chain}}}
+
+
+def damp_state_from_jax(state_np: dict, *, device="cpu") -> dict:
+    """A JAX DampNet state (numpy leaves) -> the port's, by name, dtypes kept
+    (``initialized`` bool, ``count`` int32)."""
+    return {k: _tensor(v, device) for k, v in state_np.items()}
+
+
+def damp_state_to_jax(state: dict) -> dict:
+    """Inverse of :func:`damp_state_from_jax`."""
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
 
 
 def flat_from_jax(flat_np: dict, *, dtype=None, device="cpu") -> dict:

@@ -4,9 +4,11 @@
 
 Episodes come out as uint8 ``[n_way, n_support+n_query, base, base, 3]``
 numpy arrays (the host layout); the eval moves them to the device and to
-NCHW.  File items are decoded with PIL, imported at first use; in-memory
-items (the synthetic and CIFAR datasets) need no decoder.  The JAX
-package's native libjpeg decoder is not ported in this slice.
+NCHW.  File items go through the native libjpeg decoder when it is built
+and bit-identical to PIL (``native_decode.py``, ``MFT_NATIVE_DECODE``), and
+through PIL otherwise, as in the JAX pipeline; in-memory items (the
+synthetic and CIFAR datasets) need no decoder.  ``MFT_DRAFT_DECODE=0``
+turns JPEG draft decoding off on both backends.
 ``EpisodeStream(cache_dir=...)`` keeps each decoded episode as a uint8
 ``.npy`` under the JAX package's cache key, so a repeated eval skips the
 decode.
@@ -21,6 +23,7 @@ import os
 import numpy as np
 
 from mft_tpu_torch.core.episode import EpisodeSpec
+from mft_tpu_torch.data import native_decode
 from mft_tpu_torch.data.manifests import Manifest
 from mft_tpu_torch.data.sampler import EpisodicSampler
 
@@ -53,27 +56,28 @@ def decode_image(item, base_size: int) -> np.ndarray:
 
     ImageFile.LOAD_TRUNCATED_IMAGES = True
     with Image.open(item) as im:
-        # JPEG draft decode (libjpeg DCT scaling), as in the JAX package's
-        # default host decode
-        im.draft("RGB", (base_size, base_size))
+        # JPEG draft decode (libjpeg DCT scaling), the JAX package's default
+        # host decode; MFT_DRAFT_DECODE=0 decodes at full size first
+        if os.environ.get("MFT_DRAFT_DECODE", "1") != "0":
+            im.draft("RGB", (base_size, base_size))
         im = im.convert("RGB").resize((base_size, base_size), Image.BILINEAR)
         return np.asarray(im, np.uint8)
 
 
 def _decode_many(items, base_size: int, pool: cf.Executor) -> np.ndarray:
-    return np.stack(list(pool.map(lambda it: decode_image(it, base_size), items)))
+    return np.stack(native_decode.decode_many(items, base_size, pool=pool, workers=WORKERS, fallback=decode_image))
 
 
 def cache_key(manifest: Manifest, spec: EpisodeSpec, n: int, seed: int, base_size: int) -> str:
     """The decoded-episode cache's content key (JAX ``EpisodeStream._cache_key``):
     any change to the file list (or in-memory array content), labels,
-    episode geometry, seed or decode resolution invalidates the cache.  The
-    port always decodes in JPEG draft mode, the JAX package's default."""
+    episode geometry, seed, decode resolution or ``MFT_DRAFT_DECODE``
+    invalidates the cache; the backend does not (the two give the same bytes)."""
     h = hashlib.sha1()
     for it in manifest.items:
         h.update(np.ascontiguousarray(it).tobytes() if isinstance(it, np.ndarray) else str(it).encode())
     h.update(np.asarray(manifest.labels).tobytes())
-    h.update(f"|{spec}|{n}|{seed}|{base_size}|draft=1".encode())
+    h.update(f"|{spec}|{n}|{seed}|{base_size}|draft={os.environ.get('MFT_DRAFT_DECODE', '1')}".encode())
     return h.hexdigest()[:20]
 
 
@@ -119,13 +123,19 @@ class EpisodeStream:
         return len(self.sampler)
 
     def __iter__(self):
-        n = len(self.sampler)
+        return self.iterate(range(len(self.sampler)))
+
+    def iterate(self, indices):
+        """The episodes ``indices`` in that order (each a function of the
+        seed and its index alone; the eval's mesh workers load their own)."""
+        indices = list(indices)
+        n = len(indices)
         with cf.ThreadPoolExecutor(WORKERS) as decode, cf.ThreadPoolExecutor(PREFETCH) as ahead:
-            futures = {i: ahead.submit(self._load, i, decode) for i in range(min(PREFETCH, n))}
-            for i in range(n):
-                if i + PREFETCH < n:
-                    futures[i + PREFETCH] = ahead.submit(self._load, i + PREFETCH, decode)
-                yield futures.pop(i).result()
+            futures = {k: ahead.submit(self._load, indices[k], decode) for k in range(min(PREFETCH, n))}
+            for k in range(n):
+                if k + PREFETCH < n:
+                    futures[k + PREFETCH] = ahead.submit(self._load, indices[k + PREFETCH], decode)
+                yield futures.pop(k).result()
 
 
 class ReplayEpisodeStream:
@@ -158,10 +168,14 @@ class ReplayEpisodeStream:
         return len(self.episodes)
 
     def __iter__(self):
+        return self.iterate(range(len(self.episodes)))
+
+    def iterate(self, indices):
+        """The recorded episodes ``indices`` in that order."""
         s = self.spec
         with cf.ThreadPoolExecutor(WORKERS) as pool:
-            for ways in self.episodes:
-                images = _decode_many([p for way in ways for p in way], self.base_size, pool)
+            for i in indices:
+                images = _decode_many([p for way in self.episodes[i] for p in way], self.base_size, pool)
                 yield images.reshape(s.n_way, s.n_per_class, self.base_size, self.base_size, 3), None
 
 

@@ -62,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -489,13 +491,28 @@ edge_abs_diff_matmul_kernel(const float* __restrict__ x, const bf16* __restrict_
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
 template <int NT>
 int launch_main(const float* x, const bf16* whi, const bf16* wlo, const float* bias, float* out, int rows, int N,
                 int F, int C, int kpad, cudaStream_t st) {
   auto kernel = edge_abs_diff_matmul_kernel<NT>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // the shared-memory limit is a setting of the current device: raised once on each card, under a lock (the
+  // eval's mesh runs on several cards); a failure is not kept, the next call retries
+  static std::mutex mu;
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= MAX_DEVICES) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!ready[dev]) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<NT>());
+      if (e != cudaSuccess) return static_cast<int>(e);
+      ready[dev] = true;
+    }
+  }
   cudaLaunchAttribute pdl;
   pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   pdl.val.programmaticStreamSerializationAllowed = 1;

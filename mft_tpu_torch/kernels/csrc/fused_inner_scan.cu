@@ -78,6 +78,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace {
@@ -1229,10 +1230,19 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// the limit is a setting of the current device: raised once on each card, under a lock (the eval's mesh launches
+// on several cards); a failure is not kept, the next call retries
 int configure_mma() {
-  static int done = -1;  // the first result, kept
-  if (done >= 0) return done;
-  cudaError_t e = allow_smem(conv_mma_kernel<0, TagConv1Fwd>, CONV_SMEM);
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= MAX_DEVICES) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready[dev]) return 0;
+  e = allow_smem(conv_mma_kernel<0, TagConv1Fwd>, CONV_SMEM);
   if (e == cudaSuccess) e = allow_smem(conv_mma_kernel<0, TagConvScFwd>, CONV_SMEM);
   if (e == cudaSuccess) e = allow_smem(conv_mma_kernel<0, TagConv2Fwd>, CONV_SMEM);
   if (e == cudaSuccess) e = allow_smem(conv_mma_kernel<0, TagConv1ScFwd>, CONV_SMEM);
@@ -1243,8 +1253,9 @@ int configure_mma() {
   if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAll, void>, WG_SMEM);
   if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAllAdam, bf16>, WG_SMEM);
   if (e == cudaSuccess) e = allow_smem(wgrad_mma_kernel<TagDwAllAdam, float>, WG_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);  // not kept: the next call tries again
-  return done = 0;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ready[dev] = true;
+  return 0;
 }
 
 // the gathers of the block's convolutions

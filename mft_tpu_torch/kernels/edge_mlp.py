@@ -115,8 +115,9 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     wsplit = torch.empty(scratch_elems(f, c), device=x.device, dtype=torch.bfloat16)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     LAUNCHES += 1
-    err = _lib().edge_abs_diff_matmul_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                          wsplit.data_ptr(), bsz, n, f, c, stream)
+    with torch.cuda.device(x.device):  # the library sets up its kernel on the current device
+        err = _lib().edge_abs_diff_matmul_f32(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                              wsplit.data_ptr(), bsz, n, f, c, stream)
     if err != 0:
         raise RuntimeError(f"edge_abs_diff_matmul_f32 launch failed: cudaError {err}")
     return out

@@ -486,8 +486,10 @@ def _launch_scan(p0, fmap_banks, bank_y, idx, w, geom: BlockGeom, lr: float) -> 
     stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES += 1
     t0 = time.perf_counter()
-    err = fn(state.data_ptr(), fmap_banks.data_ptr(), int(fmap_banks.dtype == torch.bfloat16), y32.data_ptr(),
-             idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), lanes, n_steps, span, *geom, float(lr), stream)
+    with torch.cuda.device(dev):  # the library sets up its kernels on the current device
+        err = fn(state.data_ptr(), fmap_banks.data_ptr(), int(fmap_banks.dtype == torch.bfloat16), y32.data_ptr(),
+                 idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), lanes, n_steps, span, *geom, float(lr),
+                 stream)
     LAST_ENQUEUE_SECONDS = time.perf_counter() - t0
     if err != 0:
         raise RuntimeError(f"fused_inner_scan_{_CARRY[dt]} launch failed: cudaError {err}")
@@ -539,9 +541,10 @@ def fused_step_grads(p, fmap_bank, bank_y, idx_t, w_t, *, geom: BlockGeom, route
     scratch = _scratch(lib, geom, dev, bank_bf16 and rt == 0)
     y32, idx32, w32 = bank_y.to(torch.int32).contiguous(), idx_t.to(torch.int32).contiguous(), w_t.float().contiguous()
     fn = getattr(lib, f"fused_step_grads_{_CARRY[dt]}")
-    err = fn(flat.data_ptr(), fmap_bank.data_ptr(), int(bank_bf16), y32.data_ptr(),
-             idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), grads.data_ptr(), loss.data_ptr(),
-             fmap_bank.shape[0], *geom, rt, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(flat.data_ptr(), fmap_bank.data_ptr(), int(bank_bf16), y32.data_ptr(),
+                 idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), grads.data_ptr(), loss.data_ptr(),
+                 fmap_bank.shape[0], *geom, rt, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_step_grads_{_CARRY[dt]} launch failed: cudaError {err}")
     return _unpack(grads, geom, ()), loss
@@ -591,9 +594,10 @@ def fused_product(which: str, wmat, x, dy, geom: BlockGeom, route=None) -> torch
     out = torch.empty(shapes["out"], dtype=torch.float32, device=dev)
     scratch = _scratch(lib, geom, dev, is_bf16 and rt == 0)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.fused_inner_scan_product(PRODUCTS.index(which), ptr(wmat), ptr(x), ptr(dy), out.data_ptr(),
-                                       scratch.data_ptr(), int(is_bf16), rt, *geom,
-                                       torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.fused_inner_scan_product(PRODUCTS.index(which), ptr(wmat), ptr(x), ptr(dy), out.data_ptr(),
+                                           scratch.data_ptr(), int(is_bf16), rt, *geom,
+                                           torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_inner_scan_product({which}) launch failed: cudaError {err}")
     return out
