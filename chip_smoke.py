@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--kernels-only`` stops after phase 3;
 ``--mesh-scaling`` builds the kernels, then runs only the eval's mesh on 1, 2, 4, ... of the visible
-cards).  It needs a
+cards; ``--pipeline`` builds the kernels, then runs only the synthetic pipeline at the JAX script's
+defaults: see phase 7).  It needs a
 CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and nothing else
 of the JAX package; it imports no ``jax``.  Phases, any failure exits
 non-zero:
@@ -39,7 +40,9 @@ non-zero:
    update rule step by step on every lane, 20-step scans against the bound
    with planted lane faults (lane 0 on its neighbour's bank or schedule), and
    the 500-step five-lane scan timed beside one lane; and the edge kernel on
-   a lane batch's B = 75 graphs at N = 30 and N = 130);
+   a lane batch's B = 75 graphs at N = 30 and N = 130); and the scan at the
+   synthetic pipeline's geometry (ResNet10's final block at 64 px, 4x4x256 ->
+   2x2x512, 20 rows a step) under the bf16 rules and their planted faults;
 4. check the eval on the card against the same eval on the CPU at a small
    size (strict f32 with the eager inner loop; then the fused scan on the
    card against its plain version on the CPU; then the faithful
@@ -114,7 +117,24 @@ non-zero:
    over the synthetic split with that ResNet18 checkpoint, and ``cli.test``
    on those features without and with ``--adaptation``, with seconds for
    each; then one ``--method all`` eval episode from the checkpoints those
-   stages wrote.
+   stages wrote;
+7. drive the synthetic pipeline (``mft_tpu_torch.examples.synthetic_pipeline``,
+   the port of ``examples/synthetic_pipeline.py``: baseline pretraining ->
+   episodic GnnNet -> FO-MAML fine-tune -> ``--method all`` on held-out
+   classes; ResNet10, bf16, 64 px, ``--use_pallas --inner_scan fused``) cut
+   short: 60 baseline steps, 12 episodic and 2 fine-tune steps of 8
+   episodes, one held-out batch of 4 lanes, with the launch counts set to 0
+   before and read after.  Every loss must be finite and the launches exact
+   (the edge kernel 3 times an episode in the training steps and 3 times a
+   lane batch, 339; the scan once a lane batch, 1); it prints each stage's
+   seconds.  ``--pipeline`` runs the whole chain at the script's defaults
+   (600 baseline steps, 188 episodic and 40 fine-tune steps of 8 episodes, 8
+   held-out batches of 4), then the held-out eval again with the eager inner
+   loop on the same trained trees, then a short chain under the profiler for
+   each stage's device time and idle share; it fails unless the last 10
+   episodic losses average below 0.5, every fine-tune loss is finite, the
+   fused held-out accuracy is at least 80 % and the eager one within 2
+   points of it, and the launches are exact (5496 edge, 8 scan).
 
 The line before the last is ``{"kernels": [...]}`` (per kernel: launches on
 the main path, max error, kernel / plain / bound times; launches on the
@@ -124,7 +144,7 @@ and bounds, and train_50's; launches on the 5-lane paths and a lane
 batch's times and bounds; launches and the profiled batch's device time on
 the ResNet10_FW, ResNet18 and ResNet34 lane paths, launches in
 ResNet10_FW's training, and launches on the ``.ckpt``-driven and mesh
-runs); the last line is
+runs, and on the synthetic pipeline's short chain); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -134,6 +154,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -328,6 +349,25 @@ DAMP_FAULTS = {"plain": "backbone features detached, the head trains alone",
 TRAIN_EPISODES = {"episodic": 6, "fine_tune": 4, "train50": 4, "dampnet_full_class": 4, "dampnet": 5,
                   "ResNet10_FW episodic": 4}
 PROFILED_STEP = 2
+#: the synthetic pipeline's scan geometry (BlockGeom fields): ResNet10's final
+#: block at 64 px, 4x4x256 -> 2x2x512, 20 rows a step of 5, over a 500-row
+#: bank (17 augmented replicas and the clean support three times)
+FUSED_64PX = (4, 256, 512, 2, 5)
+#: the lanes of the synthetic pipeline's held-out batch (its EVAL_LANES)
+CHAIN_LANES = 4
+#: the default run's short chain of mft_tpu_torch.examples.synthetic_pipeline
+#: (its flags): 60 baseline steps of 64 images, 12 episodic and 2 fine-tune
+#: steps of 8 episodes, one held-out lane batch of 4 episodes
+CHAIN_SHORT = {"baseline_steps": 60, "steps": 12, "finetune_steps": 2, "eval_batches": 1}
+#: --pipeline: the chain at the JAX script's defaults must reach a mean
+#: episodic loss below PIPELINE_TAIL_LOSS over its last PIPELINE_TAIL steps
+#: (chance is ln 5 = 1.61), a fused held-out accuracy of PIPELINE_MIN_ACC
+#: percent, and the eager inner loop's accuracy on the same trained trees
+#: within PIPELINE_EAGER_GAP points of it
+PIPELINE_TAIL, PIPELINE_TAIL_LOSS, PIPELINE_MIN_ACC, PIPELINE_EAGER_GAP = 10, 0.5, 80.0, 2.0
+#: --pipeline: each stage's profiler window inside the full run, after its
+#: warm-up: (the step or batch after which it opens, the steps or batches it spans)
+PIPELINE_WINDOWS = {"baseline": (300, 5), "episodic": (100, 5), "fine_tune": (20, 2), "eval": (3, 2)}
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
 #: the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -471,6 +511,12 @@ EDGE_TRAIN50 = ((16, 130, 133, 192), (16, 130, 181, 192), (16, 130, 229, 192))
 #: five episodes in one call, B = 15 * 5 = 75 (5-shot N = 30, 50-shot N = 130)
 EDGE_LANES = ((75, 30, 133, 192), (75, 30, 181, 192), (75, 30, 229, 192))
 EDGE_LANES50 = ((75, 130, 133, 192), (75, 130, 181, 192), (75, 130, 229, 192))
+#: the synthetic pipeline (mft_tpu_torch/examples/synthetic_pipeline.py):
+#: its GnnNet training and fine-tune steps run the head episode by episode on
+#: B = n_query = 8 graphs, its held-out lane batches of 4 episodes on B = 15 *
+#: 4 = 60 graphs
+EDGE_PIPE = ((8, 30, 133, 192), (8, 30, 181, 192), (8, 30, 229, 192))
+EDGE_PIPE_EVAL = ((60, 30, 133, 192), (60, 30, 181, 192), (60, 30, 229, 192))
 #: besides: rows not a multiple of 64 with C and F under one tile; F a
 #: multiple of 64; one graph; the three-query graphs of phase 4 (5-shot and
 #: 50-shot)
@@ -497,10 +543,11 @@ def phase_edge_kernel(torch, dev):
     worst_abs, main = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     train, fifty, train50 = dict(main), dict(main), dict(main)  # three calls: a training step, a 50-shot episode, a train_50 step
     lanes, lanes50 = dict(main), dict(main)  # three calls of a 5-lane batch, 5-shot and 50-shot
+    pipe, pipe_eval = dict(main), dict(main)  # the synthetic pipeline: an episode of a step, a 4-lane batch
     bound_by = {"bytes": 0.0, "operations": 0.0}  # the main calls' bounds, summed by what binds each
     sums = ((EDGE_MAIN, main), (EDGE_TRAIN, train), (EDGE_50, fifty), (EDGE_TRAIN50, train50), (EDGE_LANES, lanes),
-            (EDGE_LANES50, lanes50))
-    checked = EDGE_MAIN + EDGE_TRAIN + EDGE_50 + EDGE_TRAIN50 + EDGE_LANES + EDGE_LANES50
+            (EDGE_LANES50, lanes50), (EDGE_PIPE, pipe), (EDGE_PIPE_EVAL, pipe_eval))
+    checked = EDGE_MAIN + EDGE_TRAIN + EDGE_50 + EDGE_TRAIN50 + EDGE_LANES + EDGE_LANES50 + EDGE_PIPE + EDGE_PIPE_EVAL
     for b, n, f, c in checked + EDGE_OTHER:
         label = f"edge_abs_diff_matmul B={b} N={n} F={f} C={c}"
         x = torch.randn((b, n, f), generator=gen, device=dev)
@@ -574,8 +621,13 @@ def phase_edge_kernel(torch, dev):
     print(f"edge_abs_diff_matmul, one {LANES}-lane batch's three calls (B = 75): N = 30 device {lanes['ms']:.5f} ms, plain "
           f"{lanes['plain_ms']:.5f} ms, bound {lanes['bound_ms']:.5f} ms; N = 130 device {lanes50['ms']:.5f} ms, plain "
           f"{lanes50['plain_ms']:.5f} ms, bound {lanes50['bound_ms']:.5f} ms")
+    print(f"edge_abs_diff_matmul, the synthetic pipeline: one episode of a training step's three forward calls "
+          f"(B = 8) device {pipe['ms']:.5f} ms, plain {pipe['plain_ms']:.5f} ms, bound {pipe['bound_ms']:.5f} ms; one "
+          f"4-lane held-out batch's three calls (B = 60) device {pipe_eval['ms']:.5f} ms, plain "
+          f"{pipe_eval['plain_ms']:.5f} ms, bound {pipe_eval['bound_ms']:.5f} ms")
     bwd_ms = phase_edge_gradient(torch, dev, edge_mlp, EDGE_TRAIN)
     bwd50_ms = phase_edge_gradient(torch, dev, edge_mlp, EDGE_TRAIN50)
+    bwd_pipe_ms = phase_edge_gradient(torch, dev, edge_mlp, EDGE_PIPE)
     return {
         "name": "edge_abs_diff_matmul",
         "route": "cuda",
@@ -609,6 +661,15 @@ def phase_edge_kernel(torch, dev):
         "bound_ms_lanes": lanes["bound_ms"],
         "ms_lanes50": lanes50["ms"],
         "bound_ms_lanes50": lanes50["bound_ms"],
+        # the synthetic pipeline: one episode of a training step (B = 8), its three forward calls and their plain
+        # backward; one held-out batch of 4 lanes (B = 60), its three calls
+        "ms_pipeline": pipe["ms"],
+        "plain_ms_pipeline": pipe["plain_ms"],
+        "bound_ms_pipeline": pipe["bound_ms"],
+        "backward_plain_ms_pipeline": bwd_pipe_ms,
+        "ms_pipeline_eval": pipe_eval["ms"],
+        "plain_ms_pipeline_eval": pipe_eval["plain_ms"],
+        "bound_ms_pipeline_eval": pipe_eval["bound_ms"],
     }
 
 
@@ -838,6 +899,27 @@ def phase_fused_other_geometries(torch, fis, dev, failures):
             state = after
 
 
+def phase_fused_64px(torch, fis, dev, failures) -> dict:
+    """The scan at the synthetic pipeline's geometry (FUSED_64PX), with the
+    bf16 bank and carry of that path, under the bf16 rules and their planted
+    faults (fused_scan_checks): one step's gradients, the update rule step
+    by step on two lanes, 20-step scans on one and two lanes; then on the
+    CHAIN_LANES lanes of a held-out batch (fused_lane_checks), and that
+    batch's 500-step scan timed against its bound."""
+    from mft_tpu_torch.train.inner_loop import InnerLoopCfg, minibatch_schedule
+
+    geom, span = fis.BlockGeom(*FUSED_64PX), 500
+    p32, banks32, bank_y = fused_inputs(torch, fis, geom, span, torch.Generator(device=dev).manual_seed(3))
+    idx, w = minibatch_schedule(torch.Generator().manual_seed(4), InnerLoopCfg(1, geom.batch, span), dev)
+    w_masked = w.clone()
+    w_masked[3, -2:] = 0.0  # one ragged minibatch among the checked steps
+    fused_scan_checks(torch, fis, geom, p32, banks32, bank_y, idx, w_masked, 0.01, failures, tag=" 64 px",
+                      dtypes=("bfloat16",))
+    inputs = fused_lane_checks(torch, fis, dev, geom, CHAIN_LANES, 6, failures, tag=" 64 px")
+    t = time_fused_lanes(torch, fis, geom, *inputs, " 64 px")
+    return {"ms_pipeline_scan": t["ms"], "bound_ms_pipeline_scan": t["bound_ms"]}
+
+
 def grad_errors(fis, got, want):
     """Per tensor, per output channel (the last axis): largest error as a
     share of the tensor's largest gradient."""
@@ -1021,6 +1103,7 @@ def phase_fused_inner_scan(torch, dev):
     banks = banks32.to(torch.bfloat16)
     phase_fused_products(torch, fis, geom, lane(p16, 0), banks[0], bank_y, idx[3], w_masked[3], failures)
     phase_fused_other_geometries(torch, fis, dev, failures)
+    pipeline_scan = phase_fused_64px(torch, fis, dev, failures)
     tol, allowed = FUSED_GRAD_TOL["bfloat16"], FUSED_GRAD_FLIP_CHANNELS["bfloat16"]
     for label, p_at in (("bf16 carry", lane(p16, 0)), ("f32 carry, bf16 bank", lane(p32, 0))):
         # one step's gradients by both routes on the card; the f32 carry also against the plain version
@@ -1105,6 +1188,7 @@ def phase_fused_inner_scan(torch, dev):
         "bound_ms": bound_ms,
         "bound_by": "operations" if b["ms_tc"] >= b["ms_bytes"] else "bytes",
         "library_ms": None,  # no single PyTorch call computes a 500-step adaptation scan
+        **pipeline_scan,  # the synthetic pipeline's held-out batch: 4 lanes at 64 px, 500 steps
     }
 
 
@@ -1217,42 +1301,41 @@ def phase_fused_inner_scan_50(torch, dev):
 FUSED_LANE_FAULTS = ("lane 0 reads lane 1's bank", "lane 0 reads lane 1's schedule")
 
 
-def phase_fused_lanes(torch, dev):
-    """The fused scan on LANES lanes at the main path's geometry, as
-    ``--eval_batch 5`` calls it: a 500-row bf16 bank and a schedule of its
-    own per lane, the labels and weights shared, bf16 carry.  The update
-    rule step by step on every lane (the kernels' state after 1 to
+def fused_lane_checks(torch, fis, dev, geom, lanes: int, seed: int, failures, tag: str = ""):
+    """The fused scan on ``lanes`` lanes at ``geom``, as a lane batch of the
+    eval calls it: a 500-row bf16 bank and a schedule of its own per lane
+    (5 epochs), the labels and weights shared, bf16 carry.  The update rule
+    step by step on every lane (the kernels' state after 1 to
     FUSED_REPLAY_STEPS steps against the plain Adam update of its own state
     and the kernels' gradients), 20-step scans of all lanes in one call
     against the floor-based bound, and planted lane faults (lane 0 on its
     neighbour's bank, then on its neighbour's schedule) that the bound must
-    catch; then the 500-step scan on LANES lanes timed beside one lane (the
-    host loop enqueues the lanes one after another)."""
-    from mft_tpu_torch.kernels import fused_inner_scan as fis
+    catch.  Appends what fails to ``failures``; returns the inputs
+    ``(params, banks, bank_y, idx, w)``."""
     from mft_tpu_torch.train.inner_loop import InnerLoopCfg, lane_schedule
 
-    geom, span, lr = fis.BlockGeom(), 500, 0.01
-    gen = torch.Generator(device=dev).manual_seed(5)
+    span, lr = 500, 0.01
+    gen = torch.Generator(device=dev).manual_seed(seed)
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    p16 = {k: (randn(LANES, *shape) * (2.0 / shape[0]) ** 0.5 if k.startswith("conv")
-               else randn(LANES, *shape) * 0.1 + (1.0 if k.endswith("_s") else 0.0)).to(torch.bfloat16)
+    p16 = {k: (randn(lanes, *shape) * (2.0 / shape[0]) ** 0.5 if k.startswith("conv")
+               else randn(lanes, *shape) * 0.1 + (1.0 if k.endswith("_s") else 0.0)).to(torch.bfloat16)
            for k, shape in fis.param_shapes(geom).items()}
-    banks = torch.relu(randn(LANES, span, geom.h_in, geom.h_in, geom.c_in)).to(torch.bfloat16)
+    banks = torch.relu(randn(lanes, span, geom.h_in, geom.h_in, geom.c_in)).to(torch.bfloat16)
     bank_y = torch.arange(span, device=dev) % 5
-    idx, w = lane_schedule([torch.Generator().manual_seed(20 + l) for l in range(LANES)],
+    idx, w = lane_schedule([torch.Generator().manual_seed(20 + l) for l in range(lanes)],
                            InnerLoopCfg(5, geom.batch, span), dev)
     lane = lambda tree, l: {k: v[l] for k, v in tree.items()}
     zeros = lambda: {k: torch.zeros_like(v[0]) for k, v in p16.items()}
     moved_share = lambda a, b, start: {k: float((a[k].double() - b[k].double()).norm())
                                        / float((b[k].double() - start[k].double()).norm()) for k in fis.PKEYS}
-    failures, tag = [], f"fused_inner_scan bf16 carry, L={LANES}"
-    states = {l: [lane(p16, l)] for l in range(LANES)}
+    tag = f"fused_inner_scan{tag} bf16 carry, L={lanes}"
+    states = {l: [lane(p16, l)] for l in range(lanes)}
     for n in range(1, FUSED_REPLAY_STEPS + 1):
         got = fis.fused_inner_scan_lanes(p16, banks, bank_y, idx[:, :n].contiguous(), w[:n], geom=geom, lr=lr)
-        for l in range(LANES):
+        for l in range(lanes):
             states[l].append(lane(got, l))
     rtol, worst_share = FUSED_REPLAY_RTOL["bfloat16"], 1.0
-    for l in range(LANES):
+    for l in range(lanes):
         mu, nu = zeros(), zeros()
         for t in range(FUSED_REPLAY_STEPS):
             g, _ = fis.fused_step_grads(states[l][t], banks[l], bank_y, idx[l, t], w[t], geom=geom)
@@ -1261,14 +1344,14 @@ def phase_fused_lanes(torch, dev):
                                <= 1e-7 + rtol * mine[k].float().abs()).float().mean()) for k in fis.PKEYS)
             worst_share = min(worst_share, close)
             if not close >= FUSED_REPLAY_SHARE:
-                failures.append(f"update rule, lane {l} step {t + 1}")
+                failures.append(f"{tag}: update rule, lane {l} step {t + 1}")
     print(f"{tag}: steps 1-{FUSED_REPLAY_STEPS} of every lane vs the plain Adam update of its own state and gradients: "
           f"share of elements within rtol {rtol:g} >= {worst_share:.5f} (at least {FUSED_REPLAY_SHARE:g})")
     want20 = [fis.fused_inner_scan_reference(lane(p16, l), banks[l], bank_y, idx[l, :20], w[:20], geom=geom, lr=lr)
-              for l in range(LANES)]
+              for l in range(lanes)]
     got20 = fis.fused_inner_scan_lanes(p16, banks, bank_y, idx[:, :20].contiguous(), w[:20], geom=geom, lr=lr)
     tols = []
-    for l in range(LANES):  # the floor: plain vs plain with every minibatch's rows reversed
+    for l in range(lanes):  # the floor: plain vs plain with every minibatch's rows reversed
         other = fis.fused_inner_scan_reference(lane(p16, l), banks[l], bank_y, torch.flip(idx[l, :20], dims=(1,)),
                                                torch.flip(w[:20], dims=(1,)), geom=geom, lr=lr)
         floor = max(moved_share(other, want20[l], lane(p16, l)).values())
@@ -1276,8 +1359,8 @@ def phase_fused_lanes(torch, dev):
         rel = max(moved_share(lane(got20, l), want20[l], lane(p16, l)).values())
         print(f"{tag}, T=20 lane {l}: worst |kernel - plain| / |plain - start| = {rel:.3e}; floor {floor:.3e}, tol "
               f"{tols[l]:.3e}")
-        if not rel <= tols[l]:
-            failures.append(f"20 steps, lane {l}")
+        if not (rel <= tols[l] and all(bool(torch.isfinite(v[l]).all()) for v in got20.values())):
+            failures.append(f"{tag}: 20 steps, lane {l}")
     planted = {"no fault": (banks[0], idx[0]), FUSED_LANE_FAULTS[0]: (banks[1], idx[0]),
                FUSED_LANE_FAULTS[1]: (banks[0], idx[1])}
     for fault, (bank, sched) in planted.items():
@@ -1287,19 +1370,39 @@ def phase_fused_lanes(torch, dev):
         print(f"{tag}, T=20 lane 0, plain version with a planted fault ({fault}): worst share {reading:.3e} against "
               f"the bound {tols[0]:.3e}: {'caught' if caught else 'passes'}")
         if caught == (fault == "no fault"):
-            failures.append(f"the lane bound with {fault}")
-    if failures:
-        fail(f"the fused inner scan on {LANES} lanes disagrees with its plain version: " + ", ".join(failures))
-    n_steps = idx.shape[1]
+            failures.append(f"{tag}: the lane bound with {fault}")
+    return p16, banks, bank_y, idx, w
+
+
+def time_fused_lanes(torch, fis, geom, p16, banks, bank_y, idx, w, label: str) -> dict:
+    """The whole scan (every step of ``idx``) on all lanes, timed beside one
+    lane in the same call; the bound is the lanes' operations or bytes."""
+    lanes, n_steps, lr = banks.shape[0], idx.shape[1], 0.01
     one = cuda_time_ms(lambda: fis.fused_inner_scan_lanes({k: v[:1] for k, v in p16.items()}, banks[:1], bank_y,
                                                           idx[:1], w, geom=geom, lr=lr), iters=2, warmup=1)
     ms = cuda_time_ms(lambda: fis.fused_inner_scan_lanes(p16, banks, bank_y, idx, w, geom=geom, lr=lr), iters=2,
                       warmup=1)
     b = fused_bound(geom, n_steps, 2, 2)
-    bound_ms = LANES * max(b["ms_tc"], b["ms_bytes"])
-    print(f"fused_inner_scan T={n_steps} bf16 L={LANES}: kernel_ms={ms:.3f} against L=1 {one:.3f} in the same call "
-          f"({ms / one:.2f} x: the lanes run one after another); bound_ms={bound_ms:.3f} ({LANES} lanes' operations)")
-    return {"ms_lanes": ms, "bound_ms_lanes": bound_ms, "ms_lanes_one": one}
+    bound_ms = lanes * max(b["ms_tc"], b["ms_bytes"])
+    print(f"fused_inner_scan{label} T={n_steps} bf16 L={lanes}: kernel_ms={ms:.3f} against L=1 {one:.3f} in the same "
+          f"call ({ms / one:.2f} x: the lanes run one after another); bound_ms={bound_ms:.3f} ({lanes} lanes' "
+          f"{'operations' if b['ms_tc'] >= b['ms_bytes'] else 'bytes'})")
+    return {"ms": ms, "bound_ms": bound_ms, "one": one}
+
+
+def phase_fused_lanes(torch, dev):
+    """The fused scan on LANES lanes at the main path's geometry, as
+    ``--eval_batch 5`` calls it (fused_lane_checks); then the 500-step scan
+    on LANES lanes timed beside one lane (the host loop enqueues the lanes
+    one after another)."""
+    from mft_tpu_torch.kernels import fused_inner_scan as fis
+
+    failures, geom = [], fis.BlockGeom()
+    inputs = fused_lane_checks(torch, fis, dev, geom, LANES, 5, failures)
+    if failures:
+        fail(f"the fused inner scan on {LANES} lanes disagrees with its plain version: " + ", ".join(failures))
+    t = time_fused_lanes(torch, fis, geom, *inputs, "")
+    return {"ms_lanes": t["ms"], "bound_ms_lanes": t["bound_ms"], "ms_lanes_one": t["one"]}
 
 
 def phase_cross_device(torch, dev):
@@ -2639,6 +2742,174 @@ def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
             fail(f"the DampNet {label} eval adapts nothing, yet launched {counts}")
 
 
+def chain_argv(flags: dict) -> list:
+    """The synthetic pipeline's argv on the card with both kernels on, at
+    ``flags`` (its count flags; the script's defaults where absent)."""
+    argv = ["--device", "cuda", "--use_pallas", "--inner_scan", "fused"]
+    for k, v in flags.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def chain_steps(a) -> dict:
+    """Steps (batches for the eval) of each stage of the chain at flags ``a``."""
+    return {"baseline": a.baseline_steps, "episodic": a.steps, "fine_tune": a.finetune_steps, "eval": a.eval_batches}
+
+
+class StageWindows:
+    """A ``step_hook`` of ``synthetic_pipeline.main``: in each stage of the
+    run itself, ``torch.profiler`` over the steps after ``windows[stage][0]``
+    (``windows[stage][1]`` of them), the device synchronized as the window
+    opens and closes, so the window's host seconds are its wall time.
+    ``readings[stage] = (wall seconds, profile, steps)``; ``spent[stage]``:
+    the seconds the hook itself took starting and stopping the profiler,
+    which the stage's seconds include; ``marks[stage]``: the host clock as
+    each step or batch was enqueued."""
+
+    def __init__(self, torch, windows):
+        self.torch, self.windows, self.prof, self.t0, self.readings, self.spent = torch, windows, None, 0.0, {}, {}
+        self.marks = {stage: [] for stage in windows}
+
+    def outside(self, stage) -> tuple:
+        """Median host seconds a step (enqueue to enqueue) before the window and
+        after it, leaving out the steps that open or close it."""
+        start, n = self.windows[stage]
+        steps = [b - a for a, b in zip(self.marks[stage], self.marks[stage][1:])]  # steps[k - 1]: step k
+        return statistics.median(steps[:start]), statistics.median(steps[start + n + 1:])
+
+    def __call__(self, stage, i):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.marks[stage].append(time.perf_counter())
+        start, n = self.windows[stage]
+        if i not in (start, start + n):
+            return
+        if i == start:
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.perf_counter()
+            self.spent[stage] = self.t0 - t
+            return
+        self.torch.cuda.synchronize()
+        t = time.perf_counter()
+        wall = t - self.t0
+        self.prof.__exit__(None, None, None)
+        self.readings[stage] = (wall, self.prof, n)
+        self.spent[stage] += time.perf_counter() - t
+
+
+def run_chain(torch, kernels, sp, argv, label: str, step_hook=None):
+    """``mft_tpu_torch.examples.synthetic_pipeline.main(argv)`` with every
+    launch count set to 0 before and read after.  Every loss must be finite,
+    every accuracy in [0, 100], and the launches exactly what the chain's
+    code gives: the edge kernel 3 times an episode in the episodic and
+    fine-tune steps (their head runs episode by episode) and 3 times a
+    held-out lane batch (one GNN pass for its lanes), the scan once a lane
+    batch.  Prints each stage's seconds and launches and the peak memory;
+    returns the result and the launch counts."""
+    a = sp.parse_args(argv)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    res = sp.main(argv, step_hook=step_hook)
+    counts = kernels.launch_counts()
+    steps = chain_steps(a)
+    for stage, losses in res["losses"].items():
+        if len(losses) != steps[stage] or not all(math.isfinite(v) for v in losses):
+            fail(f"{label}: the {stage} stage's losses are not {steps[stage]} finite values: {losses}")
+    if len(res["accs"]) != a.eval_batches * sp.EVAL_LANES or not all(0.0 <= v <= 100.0 for v in res["accs"]):
+        fail(f"{label}: held-out accuracies out of range: {res['accs']}")
+    for stage in sp.STAGES:
+        unit, units = ("batch", "batches") if stage == "eval" else ("step", "steps")
+        print(f"{label} {stage}: {steps[stage]} {units} in {res['seconds'][stage]:.3f} s, "
+              f"{res['seconds'][stage] / steps[stage]:.4f} s a {unit}; launches {res['launches'][stage]}")
+    want = {"edge_abs_diff_matmul": 3 * (a.steps + a.finetune_steps) * sp.EPISODES + 3 * a.eval_batches,
+            "fused_inner_scan": a.eval_batches}
+    print(f"{label}: held-out accuracy {res['acc']:.2f}% +- {res['ci95']:.2f}% over {len(res['accs'])} episodes; "
+          f"kernel launches {counts} (the code gives {want}); peak device memory "
+          f"{res['peak_bytes'] / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    if counts != want:
+        fail(f"{label} launched {counts}, not {want}")
+    return res, counts
+
+
+def phase_pipeline(torch, kernels, dev):
+    """``--pipeline``: the scan at the chain's geometry, then the synthetic
+    pipeline at the JAX script's defaults (600 baseline steps, 188 episodic
+    and 40 fine-tune steps of 8 episodes, 8 held-out lane batches of 4) with
+    both kernels; its loss curve, the held-out accuracy again with the eager
+    inner loop on the same trained trees, the rules of PIPELINE_*; and each
+    stage's device time and idle share in a profiler window of the run
+    itself (PIPELINE_WINDOWS, after the stage's warm-up)."""
+    from mft_tpu_torch.examples import synthetic_pipeline as sp
+    from mft_tpu_torch.kernels import fused_inner_scan as fis
+
+    failures = []
+    phase_fused_64px(torch, fis, dev, failures)
+    if failures:
+        fail("the fused inner scan disagrees with its plain version at 64 px: " + ", ".join(failures))
+    mark("fused scan checks, 64 px")
+    windows = StageWindows(torch, PIPELINE_WINDOWS)
+    res, _ = run_chain(torch, kernels, sp, chain_argv({}), "pipeline", step_hook=windows)
+    ep, ft, top1 = res["losses"]["episodic"], res["losses"]["fine_tune"], res["top1"]
+    mean = lambda v: sum(v) / len(v)
+    print("pipeline episodic loss every 25 steps (8 episodes a step), and the mean of the 25 from there: "
+          + "; ".join(f"{i}: {ep[i]:.4f} / {mean(ep[i:i + 25]):.4f}" for i in range(0, len(ep), 25)))
+    for level in (1.0, 0.5):
+        below = next((i for i in range(len(ep) - 9) if mean(ep[i:i + 10]) < level), None)
+        print(f"pipeline: the first step whose next 10 losses average below {level}: {below} "
+              f"({'never' if below is None else f'{below * 8} episodes'})")
+    print("pipeline baseline top-1 every 150 steps: "
+          + "; ".join(f"{i}: {top1[i]:.4f}" for i in range(0, len(top1), 150)) + f"; last {top1[-1]:.4f}")
+    print("pipeline fine-tune loss every 20 steps: " + "; ".join(f"{i}: {ft[i]:.4f}" for i in range(0, len(ft), 20))
+          + f"; last {ft[-1]:.4f}, mean {mean(ft):.4f}")
+    tail = mean(ep[-PIPELINE_TAIL:])
+    print(f"pipeline: episodic loss {ep[0]:.4f} at step 0, {tail:.4f} over the last {PIPELINE_TAIL} steps "
+          f"(at most {PIPELINE_TAIL_LOSS})")
+    mark("pipeline, fused")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    eager = sp.run_heldout(res["models"], device=dev, use_pallas=True, inner_scan="eager")
+    counts_e = kernels.launch_counts()
+    print(f"pipeline held-out, --inner_scan fused: {res['acc']:.2f}% +- {res['ci95']:.2f}% "
+          f"({res['seconds']['eval']:.3f} s for {len(eager.scores)} batches); --inner_scan eager on the same trees: "
+          f"{eager.mean:.2f}% +- {eager.ci95:.2f}% ({eager.seconds:.3f} s, launches {counts_e}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB)")
+    if not tail < PIPELINE_TAIL_LOSS:
+        failures.append(f"the episodic loss of the last {PIPELINE_TAIL} steps averages {tail:.4f}")
+    if not res["acc"] >= PIPELINE_MIN_ACC:
+        failures.append(f"the fused held-out accuracy is {res['acc']:.2f}%")
+    if not abs(res["acc"] - eager.mean) <= PIPELINE_EAGER_GAP:
+        failures.append(f"the eager accuracy {eager.mean:.2f}% is {abs(res['acc'] - eager.mean):.2f} points away")
+    if counts_e["fused_inner_scan"] != 0 or counts_e["edge_abs_diff_matmul"] != 3 * len(eager.scores):
+        failures.append(f"the eager eval launched {counts_e}")
+    if failures:
+        fail("the synthetic pipeline: " + "; ".join(failures))
+    mark("pipeline, eager eval")
+
+    full = chain_steps(sp.parse_args(chain_argv({})))
+    for stage in sp.STAGES:
+        if stage not in windows.readings:
+            fail(f"the {stage} stage's profiler window never closed")
+        wall, prof, n = windows.readings[stage]
+        t = trace_summary(prof, ("pipeline",))
+        unit = "batch" if stage == "eval" else "step"
+        if t["busy_us"] == 0:
+            fail(f"the profiler recorded no device time in the {stage} stage's window")
+        device_s, host_s = t["busy_us"] / 1e6 / n, wall / n
+        net = res["seconds"][stage] - windows.spent[stage]
+        before, after = windows.outside(stage)
+        print(f"pipeline {stage}, profiler window of {n} {unit}s after {unit} {PIPELINE_WINDOWS[stage][0]} of the run: "
+              f"device {device_s:.4f} s a {unit}, host {host_s:.4f} s a {unit} (wall, device synchronized at both "
+              f"ends); idle share {1.0 - device_s / host_s:.4f}; unprofiled, median host s a {unit} (enqueue to enqueue) "
+              f"before the window {before:.4f} and after it {after:.4f}: device / that {device_s / before:.4f} and "
+              f"{device_s / after:.4f}; the stage {net:.3f} s without the hook's own {windows.spent[stage]:.3f} s")
+        for k, (us, calls) in sorted(t["kernels"].items(), key=lambda kv: -kv[1][0])[:5]:
+            print(f"pipeline {stage} window kernel {us / 1e3:10.3f} ms {calls:7d} calls  {k[:100]}")
+
+
 def main():
     import torch
 
@@ -2680,6 +2951,13 @@ def main():
             print(line)
         phase_mesh_scaling(torch, finetune)
         mark("mesh scaling")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+
+    if "--pipeline" in sys.argv[1:]:  # the synthetic pipeline at the JAX script's defaults
+        phase_pipeline(torch, kernels, dev)
+        mark("pipeline")
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return
@@ -2838,13 +3116,23 @@ def main():
         phase_dampnet_eval(torch, kernels, finetune, rows, pj_trained)
     mark("DampNet eval")
 
+    # 7. the synthetic pipeline's chain, cut short: baseline -> GnnNet -> FO-MAML -> held-out eval
+    from mft_tpu_torch.examples import synthetic_pipeline as sp
+
+    _, counts_chain = run_chain(torch, kernels, sp, chain_argv(CHAIN_SHORT), "short chain")
+    for row in rows:
+        row["launches_pipeline"] = counts_chain[row["name"]]
+    mark("synthetic pipeline, short chain")
+
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
              "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet",
              "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_lanes50",
              "ms_lanes50", "bound_ms_lanes50", "launches_fw", "ms_fw", "launches_r18", "ms_r18", "launches_r34",
-             "ms_r34", "launches_train_fw", "launches_ckpt", "launches_mesh"]
+             "ms_r34", "launches_train_fw", "launches_ckpt", "launches_mesh", "launches_pipeline", "ms_pipeline",
+             "plain_ms_pipeline", "bound_ms_pipeline", "backward_plain_ms_pipeline", "ms_pipeline_eval",
+             "plain_ms_pipeline_eval", "bound_ms_pipeline_eval", "ms_pipeline_scan", "bound_ms_pipeline_scan"]
     # keys of a path that a kernel off that path (or a number this run does not measure) leaves null
     print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -592,45 +592,56 @@ def dampnet_member_lanes(backbone_params, backbone_stats, damp_params, damp_stat
 
 
 def ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats, gnn_head, episodes, supports, gens, *,
-                   bcfg, gcfg, spec, tcfg, aug_cfg, gen_examples: int = 0):
+                   bcfg, gcfg, spec, tcfg, aug_cfg, gen_examples: int = 0, inner_schedule=None, head0=None):
     """--method all for ``E`` lanes: softmax(linear member) + softmax(GNN
     member), on the same support banks (finetune.py:648-650); the members
     run back to back, or with ``ensemble_fuse='lane'`` their inner loops
-    step together (:func:`_fused_ensemble_lanes`)."""
+    step together (:func:`_fused_ensemble_lanes`).  ``inner_schedule``:
+    explicit lane-stacked ``(linear, gnn)`` schedules, and ``head0`` the
+    linear member's classifier init, instead of the draws from ``gens``."""
     kw = dict(bcfg=bcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples)
+    sched_lin, sched_gnn = (None, None) if inner_schedule is None else inner_schedule
     if (tcfg.ensemble_fuse == "lane" and supports.dim() == 6 and not tcfg.freeze_backbone
             and tcfg.inner_gather == "step" and tcfg.inner_carry == "tree" and tcfg.inner_scan == "eager"):
         return _fused_ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats, gnn_head, episodes,
-                                     supports, gens, gcfg=gcfg, **kw)
-    s_lin = linear_member_lanes(baseline_params, baseline_stats, episodes, supports, gens, **kw)
-    s_gnn = gnn_member_lanes(gnn_params, gnn_stats, gnn_head, episodes, supports, gens, gcfg=gcfg, **kw)
+                                     supports, gens, gcfg=gcfg, sched_lin=sched_lin, sched_gnn=sched_gnn, head0=head0,
+                                     **kw)
+    s_lin = linear_member_lanes(baseline_params, baseline_stats, episodes, supports, gens, inner_schedule=sched_lin,
+                                head0=head0, **kw)
+    s_gnn = gnn_member_lanes(gnn_params, gnn_stats, gnn_head, episodes, supports, gens, gcfg=gcfg,
+                             inner_schedule=sched_gnn, **kw)
     return s_lin + s_gnn
 
 
 def _fused_ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats, gnn_head, episodes, supports, gens,
-                          *, bcfg, gcfg, spec, tcfg, aug_cfg, gen_examples: int = 0):
+                          *, bcfg, gcfg, spec, tcfg, aug_cfg, gen_examples: int = 0, sched_lin=None, sched_gnn=None,
+                          head0=None):
     """``ensemble_fuse='lane'`` (JAX ``_fused_ensemble_scores``,
     eval_engine.py:638-708): both members' inner loops in one
     ``inner_fit_pair``.  Banks, draws (each lane: the classifier init, the
     linear schedule, the augment parameters, the GNN schedule, in the
-    sequential order), update math and scoring mirror the sequential
-    members, so the scores are the same numbers."""
+    sequential order; each given explicitly is not drawn), update math and
+    scoring mirror the sequential members, so the scores are the same
+    numbers."""
     dev = supports.device
-    head0 = _draw_heads(gens, bcfg, spec, dev)
+    if head0 is None:
+        head0 = _draw_heads(gens, bcfg, spec, dev)
     with record_function("bank_fmap:linear"):
         fmap_lin, _, n_lin = _member_bank(baseline_params, baseline_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                           aug_cfg=aug_cfg, gen_examples=gen_examples, clean_only=True)
     p_lin, loss_lin, tx_lin, icfg_lin, fin_lin = _prepare_adapt(
         baseline_params, baseline_stats, bank_labels(spec, n_lin, dev), bcfg=bcfg, tcfg=tcfg,
         epochs=tcfg.linear_epochs, head=head0, perm_span=spec.support_size, fmap_bank=fmap_lin)
-    sched_lin = lane_schedule(gens, icfg_lin, dev) if icfg_lin.epochs else None
+    if sched_lin is None and icfg_lin.epochs:
+        sched_lin = lane_schedule(gens, icfg_lin, dev)
     with record_function("bank_fmap:gnn"):
         fmap_gnn, _, n_gnn = _member_bank(gnn_params, gnn_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                           aug_cfg=aug_cfg, gen_examples=gen_examples)
     p_gnn, loss_gnn, tx_gnn, icfg_gnn, fin_gnn = _prepare_adapt(
         gnn_params, gnn_stats, bank_labels(spec, n_gnn, dev), bcfg=bcfg, tcfg=tcfg, epochs=tcfg.fine_tune_epochs,
         head=None, fmap_bank=fmap_gnn)
-    sched_gnn = lane_schedule(gens, icfg_gnn, dev) if icfg_gnn.epochs else None
+    if sched_gnn is None and icfg_gnn.epochs:
+        sched_gnn = lane_schedule(gens, icfg_gnn, dev)
     with record_function("adapt:pair"):
         a_lin, a_gnn = inner_fit_pair(loss_lin, p_lin, tx_lin, gens, icfg_lin, loss_gnn, p_gnn, tx_gnn, gens, icfg_gnn,
                                       schedule_a=sched_lin, schedule_b=sched_gnn, device=dev)
@@ -731,12 +742,15 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
     std)`` selects the unsupervised composition).  In the episode BN mode
     the ``E`` episodes run as lanes of one batch; in the minibatch BN mode
     one at a time, each building its replica bank once for both members of
-    ``--method all``."""
+    ``--method all``.  ``fn(..., inner_schedule=, head0=)`` (episode BN mode)
+    take the member's lane-stacked ``(idx, w)`` schedule (for ``all`` the
+    pair ``(linear, gnn)``) and the linear member's classifier init in place
+    of their draws from ``gens``."""
     if method not in METHODS:
         raise ValueError(f"the port evaluates --method {'|'.join(METHODS)}, not {method!r}")
     _check_modes(tcfg)
 
-    def run(models, base: torch.Tensor, gens):
+    def run(models, base: torch.Tensor, gens, draws):
         dt = pipeline_dtype(bcfg.compute_dtype)
         with torch.no_grad():
             episodes = center_batch(base, aug_cfg.image_size, dtype=dt)
@@ -745,7 +759,7 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
                 with record_function("bank_fmap:replicas"):
                     supports = torch.stack([make_eval_replicas(g, s, aug_cfg, gen_examples)
                                             for g, s in zip(gens, supports)])
-        kw = dict(bcfg=bcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples)
+        kw = dict(bcfg=bcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples, **draws)
         if method == "all":
             return ensemble_lanes(*models["baseline"], *models["gnn"], episodes, supports, gens, gcfg=gcfg, **kw)
         if method in ("gnnnet", "gnnnet_maml"):
@@ -757,13 +771,16 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
                                         eval_mode=dampnet_eval, unsup_stats=models.get("unsup_stats"), **kw)
         return linear_member_lanes(*models["baseline"], episodes, supports, gens, **kw)
 
-    def program(models, base_episodes: torch.Tensor, gens):
+    def program(models, base_episodes: torch.Tensor, gens, inner_schedule=None, head0=None):
         if len(gens) != base_episodes.shape[0]:
             raise ValueError(f"{base_episodes.shape[0]} episodes need as many generators, got {len(gens)}")
+        draws = {k: v for k, v in (("inner_schedule", inner_schedule), ("head0", head0)) if v is not None}
         if tcfg.bn_mode == "minibatch":  # lane by lane
-            scores = torch.cat([run(models, base_episodes[i : i + 1], gens[i : i + 1]) for i in range(len(gens))])
+            if draws:
+                raise ValueError("explicit inner schedules and heads are taken in the episode BN mode only")
+            scores = torch.cat([run(models, base_episodes[i : i + 1], gens[i : i + 1], {}) for i in range(len(gens))])
         else:
-            scores = run(models, base_episodes, gens)
+            scores = run(models, base_episodes, gens, draws)
         return scores, lane_accuracies(scores, spec)
 
     return program
