@@ -49,11 +49,18 @@ non-zero:
    ``bn_mode='minibatch'`` eval), few inner steps; then three episodes as
    one lane batch on the card against the same episodes one at a time on
    the CPU (64 px, strict f32 eager, then the fused scan; each beside a
-   planted fault, BN statistics over all lanes, that it must catch); then one
+   planted fault, BN statistics over all lanes, that it must catch), and
+   the same in the faithful ``--bn_mode minibatch`` (eager, 0 and 1 inner
+   epochs, beside its own planted fault: the trunk's BN statistics pooled
+   over the lanes); then one
    step of each training stage (baseline, episodic GnnNet with the edge
    kernel, the meta fine-tune with a fixed inner schedule, the 50-shot
    GnnNet step of ``cli.train_50``) on the card against the CPU at 64 px:
-   loss, gradients, updates, running stats; DampNet's steps and eval member;
+   loss, gradients, updates, running stats; DampNet's steps and eval member,
+   and DampNet's ``nofinetune`` (with the probe) and ``--unsupervised``
+   compositions as a three-lane batch on the card against each episode
+   alone on the CPU (64 px; a planted fault, one probe head init shared by
+   all lanes, must fail);
    then the other backbones: one ResNet10_FW episodic GnnNet step with its
    FWT noise drawn once on the host and fed to both devices (its noise
    strengths' updates exactly 0 on both; the noise dropped on the final
@@ -83,11 +90,14 @@ non-zero:
    then the episode lanes of ``--eval_batch 5`` (the JAX driver's default):
    the fused main path for 15 episodes (three batches, the first the warm-up;
    launch counts set to 0 before and read after: the scan once a batch, the
-   edge kernel three times a batch) and one profiled batch; the eval
-   engine's knobs, each for three batches timed against its default
-   (``--inner_gather epoch``, ``--inner_carry flat`` and
+   edge kernel three times a batch) and one profiled batch; the faithful
+   eval (``--bn_mode minibatch``, strict f32) for two batches, the first the
+   warm-up (the edge kernel three times a batch, the scan never), beside its
+   ``--eval_batch 1`` drive, and one profiled batch; the eval engine's
+   knobs, each for two batches (the first the warm-up) timed against its
+   default (``--inner_gather epoch``, ``--inner_carry flat`` and
    ``--fanout_group_pass 6`` on the fused lanes, ``--ensemble_fuse lane``
-   on the eager ones); three batches with ``--inner_scan eager`` and three
+   on the eager ones); two batches with ``--inner_scan eager`` and two
    with ``--freeze_backbone``; and one 50-shot batch through
    ``cli.finetune_50`` (its time includes the warm-up); then the other
    backbones at ``--eval_batch 5`` from their own seeded checkpoints:
@@ -117,7 +127,13 @@ non-zero:
    over the synthetic split with that ResNet18 checkpoint, and ``cli.test``
    on those features without and with ``--adaptation``, with seconds for
    each; then one ``--method all`` eval episode from the checkpoints those
-   stages wrote;
+   stages wrote; then the DampNet eval from its trained checkpoint (two
+   episodes and a profiled one), and its live, ``--unsupervised`` and
+   ``nofinetune`` compositions in strict f32 at ``--eval_batch 1`` (five
+   episodes) and at ``--eval_batch 5`` (two batches), the lanes' scores held against the
+   same episodes alone, launch counts exact (the edge kernel never, the scan
+   once a batch in the live one), seconds per episode of both and one
+   profiled lane batch each;
 7. drive the synthetic pipeline (``mft_tpu_torch.examples.synthetic_pipeline``,
    the port of ``examples/synthetic_pipeline.py``: baseline pretraining ->
    episodic GnnNet -> FO-MAML fine-tune -> ``--method all`` on held-out
@@ -141,7 +157,8 @@ the main path, max error, kernel / plain / bound times; launches on the
 training path and, for the edge kernel, one training step's forward times
 and its plain backward's; launches on the 50-shot main path and its times
 and bounds, and train_50's; launches on the 5-lane paths and a lane
-batch's times and bounds; launches and the profiled batch's device time on
+batch's times and bounds; launches on the faithful and the DampNet lane
+paths; launches and the profiled batch's device time on
 the ResNet10_FW, ResNet18 and ResNet34 lane paths, launches in
 ResNet10_FW's training, and launches on the ``.ckpt``-driven and mesh
 runs, and on the synthetic pipeline's short chain); the last line is
@@ -164,10 +181,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 EPISODES = 3
 #: 50-shot episodes of the main-path run (the first is the warm-up)
 EPISODES_50 = 2
+#: the DampNet compositions' --eval_batch 1 drives, held against the first lane batch of the same episodes
+#: (strict f32, XDEV_TOL: the unsupervised forward, the nofinetune probe's SGD).  The live composition's 500 fused
+#: steps with bf16 Adam moments part a lane from its episode alone by sign chaos (on one H100, in f32 on the trained
+#: weights: 3.512e-02 with 17 clear argmax flips in one call, 2.231e-02 in another), so its scores are held with
+#: --fine_tune_epoch 0 and its full-depth drives are timed; phase 4 holds its lanes with one inner epoch
+DAMP_EPISODES = 5
 #: the lane runs of phase 5: --eval_batch LANES; the episodes of each timed lane drive (three batches, the first the
 #: warm-up: one steady batch moved by up to a fifth between batches on one H100's host)
 LANES = 5
 LANE_EPISODES = 15
+#: the other lane drives of phase 5 (each knob, eager, --ensemble_fuse lane, --freeze_backbone): two batches, the
+#: first the warm-up, so that the script's new drives fit its time limit
+KNOB_EPISODES = 2 * LANES
 #: --fanout_group_pass of phase 5's knob timing: three trunk passes of six replica groups for the 18 of a bank
 FANOUT_GROUP_PASS = 6
 #: phase 4: episodes of one lane batch on the card against the same episodes alone on the CPU
@@ -186,6 +212,11 @@ XDEV_LANES = 3
 XDEV_LANE_CAP = 1e-2
 XDEV_LANE_MARGIN = 2 * XDEV_LANE_CAP
 XDEV_LANE_FAULT = "BN statistics over all lanes together"
+#: phase 4's faithful lanes (--bn_mode minibatch): the planted fault pools the trunk's BN statistics over the lanes
+#: (bn_groups=1, the inner step's mask repeated over the lanes' rows), in the inner steps and the embedding alike
+XDEV_MINIBATCH_FAULT = "the trunk's BN statistics over all lanes together"
+#: phase 4's DampNet lanes: the planted fault starts every lane's probe from lane 0's head
+XDEV_PROBE_FAULT = "one probe head init shared by all lanes"
 #: f32 kernel vs f32 plain product: same math, other summation order
 EDGE_REL_TOL = 1e-4
 #: the edge kernel vs the plain emulation of its own arithmetic (the
@@ -197,6 +228,10 @@ EDGE_SPLIT_TOL = 1e-5
 #: card vs CPU eval scores (softmax sums in [0, 2]), strict f32, no inner
 #: steps: the same forward (trunk, BN, GNN with the edge kernel) on both
 XDEV_TOL = 1e-4
+#: phase 4's DampNet lanes with the probe (``--dampnet_eval nofinetune``): the probe's 700 SGD steps on the
+#: recovered projections, card lanes against CPU episodes alone in f32; no Adam, so no sign chaos: read 4.292e-06
+#: on one H100, the planted shared head 1.919e-01, so XDEV_TOL holds it
+XDEV_PROBE_CAP = XDEV_TOL
 #: fused scan kernels vs their plain version, one step's gradients, as a
 #: share of each tensor's largest gradient.  f32: the same f32 math in
 #: another summation order.  bf16: y1, z1, the pooled features and every dy
@@ -1470,12 +1505,27 @@ def phase_cross_device(torch, dev):
 
     lane_checks(torch, dev, bcfg, gcfg, (bp, bs, gp, gs, head), XDEV_LANE_FAULT, plant, ("eager", "fused"))
 
+    # the faithful mode's lanes: each inner step runs the trunk once on the lanes' images, each lane's BN
+    # statistics its own and masked by the step's weights (the fused scan refuses this mode)
+    real_trunk = bb.apply_trunk
 
-def lane_checks(torch, dev, bcfg, gcfg, weights, fault: str, plant, modes, label: str = "ResNet10"):
+    def pooled_trunk(p, s, x, *, sample_mask=None, bn_groups=1, **kw):  # the planted fault
+        if sample_mask is not None and bn_groups > 1:
+            sample_mask = sample_mask.repeat(bn_groups)
+        return real_trunk(p, s, x, sample_mask=sample_mask, bn_groups=1, **kw)
+
+    lane_checks(torch, dev, bcfg, gcfg, (bp, bs, gp, gs, head), XDEV_MINIBATCH_FAULT,
+                lambda stack: stack.enter_context(mock.patch.object(bb, "apply_trunk", pooled_trunk)), ("eager",),
+                bn_mode="minibatch")
+
+
+def lane_checks(torch, dev, bcfg, gcfg, weights, fault: str, plant, modes, label: str = "ResNet10",
+                bn_mode: str = "episode"):
     """XDEV_LANES episodes as one ``--method all`` lane batch on the card
     against the same episodes one at a time on the CPU, at 64 px (the final
-    block sees 4x4 maps), strict f32: without inner steps (eager), then one
-    epoch of each inner loop of ``modes``; each beside the planted ``fault``
+    block sees 4x4 maps), strict f32, in ``bn_mode``: without inner steps
+    (eager), then one epoch of each inner loop of ``modes``; each beside the
+    planted ``fault``
     (``plant(stack)`` enters its patches, on the card only), which the
     rules must catch: XDEV_TOL without steps, XDEV_LANE_CAP and the argmax
     wherever the CPU's top two scores lie more than XDEV_LANE_MARGIN apart
@@ -1497,7 +1547,7 @@ def lane_checks(torch, dev, bcfg, gcfg, weights, fault: str, plant, modes, label
     cpu_of = {}  # the CPU's episodes alone, per (epochs, inner loop): the fault is planted on the card only
     runs = [(0, "eager", None), (0, "eager", fault)] + [(1, m, f) for m in modes for f in (None, fault)]
     for epochs, mode, planted in runs:
-        tcfg = ee.TransferCfg(fine_tune_epochs=epochs, linear_epochs=epochs, inner_scan=mode,
+        tcfg = ee.TransferCfg(fine_tune_epochs=epochs, linear_epochs=epochs, inner_scan=mode, bn_mode=bn_mode,
                               opt_state_dtype="float32" if mode == "eager" else "bfloat16")
         program = ee.make_eval_program(method="all", bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug,
                                        gen_examples=1)
@@ -1518,7 +1568,8 @@ def lane_checks(torch, dev, bcfg, gcfg, weights, fault: str, plant, modes, label
         clear = (top2[..., 0] - top2[..., 1]) > XDEV_LANE_MARGIN
         flipped = card.argmax(-1) != cpu.argmax(-1)
         desc = f"{label}: {XDEV_LANES} episodes as one lane batch on the card vs one at a time on the CPU (64 px, " \
-               f"{mode} inner loop, {epochs} inner epochs{', planted fault: ' + planted if planted else ''})"
+               f"{bn_mode} BN mode, {mode} inner loop, {epochs} inner epochs" \
+               f"{', planted fault: ' + planted if planted else ''})"
         print(f"{desc}: max |d scores| = {diff:.3e}; argmax differs in {int(flipped.sum())} of {flipped.numel()} "
               f"queries, {int((flipped & clear).sum())} of them among the {int(clear.sum())} whose top two CPU scores lie "
               f"more than {XDEV_LANE_MARGIN:g} apart (the CPU's top-two gaps where it differs: "
@@ -1918,6 +1969,71 @@ def phase_dampnet_cross_device(torch, dev):
               f"max |d scores| = {diff:.3e}, argmax agree = {agree}")
         if not agree or (epochs == 0 and not diff <= XDEV_TOL):
             fail(f"the card's DampNet eval ({scan}) disagrees with the CPU's at {epochs} inner epochs")
+    dampnet_lane_checks(torch, dev, bcfg, dcfg, (feature, stats, head, dstate))
+
+
+def dampnet_lane_checks(torch, dev, bcfg, dcfg, weights):
+    """DampNet's scoring and probe as lanes: XDEV_LANES episodes of the
+    ``--dampnet_eval nofinetune`` composition (the recovery network and the
+    GNN on the plain edge op once for all lanes, then one lane-stacked probe
+    loop of 700 SGD steps) and of ``--unsupervised`` (no probe) as one lane
+    batch on the card against the same episodes one at a time on the CPU, at
+    64 px, f32; neither adapts the backbone.  The unsupervised scores must
+    agree to XDEV_TOL, the probe's to XDEV_PROBE_CAP with the same argmax
+    wherever the CPU's top two lie more than XDEV_LANE_MARGIN apart; the
+    planted XDEV_PROBE_FAULT on the card must fail.  ``weights``: the
+    backbone's params and stats, the DampNet heads and state, on the CPU."""
+    from unittest import mock
+
+    import numpy as np
+
+    from mft_tpu_torch.core.episode import EpisodeSpec
+    from mft_tpu_torch.ops.augment import AugmentCfg
+    from mft_tpu_torch.train import eval_engine as ee
+
+    spec = EpisodeSpec(5, 5, 3)
+    to = lambda t, d: {k: to(v, d) for k, v in t.items()} if isinstance(t, dict) else (
+        [to(v, d) for v in t] if isinstance(t, list) else t.to(d))
+    base = torch.from_numpy(np.random.RandomState(11).randint(0, 256, (XDEV_LANES, 5, 8, 73, 73, 3),
+                                                               dtype=np.uint8)).permute(0, 1, 2, 5, 3, 4)
+    gens = lambda: [torch.Generator().manual_seed(60 + i) for i in range(XDEV_LANES)]
+    dstate = weights[3]
+    unsup = (dstate["proto_mean"] * 0.9, dstate["proto_std"] * 1.1)  # an unlabeled set's statistics, made up
+    real_heads = ee._draw_heads
+
+    def shared_heads(*a, **k):  # the planted fault
+        heads = real_heads(*a, **k)
+        return {key: v[:1].expand_as(v).clone() for key, v in heads.items()}
+
+    for comp in ("nofinetune", "unsupervised"):
+        program = ee.make_eval_program(method="dampnet_full_class", bcfg=bcfg, gcfg=None, spec=spec,
+                                       tcfg=ee.TransferCfg(), aug_cfg=AugmentCfg(image_size=64), gen_examples=1,
+                                       dcfg=dcfg, dampnet_eval="nofinetune" if comp == "nofinetune" else "finetune")
+
+        def models(d):
+            m = {"dampnet": tuple(to(t, d) for t in weights)}
+            if comp == "unsupervised":
+                m["unsup_stats"] = tuple(t.to(d) for t in unsup)
+            return m
+
+        cpu = torch.cat([program(models("cpu"), base[i : i + 1], gens()[i : i + 1])[0] for i in range(XDEV_LANES)])
+        top2 = cpu.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > XDEV_LANE_MARGIN
+        for planted in ((None, XDEV_PROBE_FAULT) if comp == "nofinetune" else (None,)):
+            with contextlib.ExitStack() as stack:
+                if planted:
+                    stack.enter_context(mock.patch.object(ee, "_draw_heads", shared_heads))
+                card = program(models(dev), base.to(dev), gens())[0].cpu()
+            diff = float((card - cpu).abs().max())
+            flipped = card.argmax(-1) != cpu.argmax(-1)
+            desc = f"DampNet {comp}: {XDEV_LANES} episodes as one lane batch on the card vs one at a time on the CPU " \
+                   f"(64 px, f32{', planted fault: ' + planted if planted else ''})"
+            print(f"{desc}: max |d scores| = {diff:.3e}; argmax differs in {int(flipped.sum())} of {flipped.numel()} "
+                  f"queries, {int((flipped & clear).sum())} of them among the {int(clear.sum())} clear ones")
+            ok = diff <= XDEV_TOL if comp == "unsupervised" else (
+                diff <= XDEV_PROBE_CAP and not bool((flipped & clear).any()))
+            if ok == bool(planted):
+                fail(f"the DampNet lane check {'misses the planted fault' if planted else 'fails'}: {desc}")
 
 
 #: phase 4's planted faults on the other backbones (each must fail its rules)
@@ -2519,15 +2635,19 @@ def phase_profile(torch, finetune, argv, steady_s: float, edge_per_episode: int,
               f"the profiled run (W's split passes {sum_of('edge_split_w_kernel')[0] / 1e3:.4f} ms besides)")
     else:
         print(f"{tag}: no edge kernel on the device timeline, as the path has none")
-    scan_symbols = ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAllAdam", "bn_fwd_kernel", "bn_bwd_kernel")
-    scan_us = {sym: sum_of(sym)[0] for sym in scan_symbols}
-    if scan and min(scan_us.values()) == 0:
+    # the scan's kernels: its products on the tensor cores for a bf16 bank, on the FMA route for an f32 one
+    routes = {"tensor-core": ("TagConv1ScFwd", "TagConv2Fwd", "TagConv2Dx", "TagDwAllAdam"),
+              "FMA": ("conv_gemm_kernel", "conv_wgrad_kernel", "adam_kernel")}
+    every = {sym: sum_of(sym)[0] for syms in routes.values() for sym in syms + ("bn_fwd_kernel", "bn_bwd_kernel")}
+    ran = [r for r, syms in routes.items() if min(every[sym] for sym in syms + ("bn_fwd_kernel", "bn_bwd_kernel")) > 0]
+    scan_us = {sym: every[sym] for sym in routes[ran[0]] + ("bn_fwd_kernel", "bn_bwd_kernel")} if ran else every
+    if scan and not ran:
         fail(f"the profiler traced device kernels but not every kernel of the fused scan ({label}): {scan_us}")
     if not scan and max(scan_us.values()) > 0:
         fail(f"the {label} episode ran kernels of the fused scan, which its path does not use: {scan_us}")
     if scan:
-        print(f"{tag}: fused scan kernels on the device timeline, {sum(scan_us.values()) / 1e3:.3f} ms device time "
-              f"in the profiled run: " + ", ".join(f"{sym} {us / 1e3:.3f}" for sym, us in scan_us.items()))
+        print(f"{tag}: fused scan kernels on the device timeline ({ran[0]} route), {sum(scan_us.values()) / 1e3:.3f} ms "
+              f"device time in the profiled run: " + ", ".join(f"{sym} {us / 1e3:.3f}" for sym, us in scan_us.items()))
     print(f"{tag}: {'episode' if episodes == 1 else f'batch of {episodes}'} {sum(res.batch_seconds):.3f} s under the "
           f"profiler, {steady_s:.3f} s without; "
           f"device time {busy_us / 1e6:.4f} s; idle share {1.0 - busy_us / 1e6 / steady_s:.4f}")
@@ -2715,9 +2835,16 @@ def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
     width, its source prototypes swept from the synthetic base set first):
     2 episodes, launch counts set to 0 before and read after (the scan once
     an episode, the edge kernel never: DampNet's GNN takes the plain edge
-    op), one profiled episode; then one episode each of ``--unsupervised
-    synthetic`` and ``--dampnet_eval nofinetune`` (neither adapts: no
-    scan)."""
+    op), one profiled episode.  Then its three compositions (the live one,
+    ``--unsupervised synthetic`` and ``--dampnet_eval nofinetune``) at
+    ``--eval_batch 1`` (DAMP_EPISODES episodes) and at ``--eval_batch
+    LANES`` (two batches, the first the warm-up), strict f32: the lanes'
+    scores of the same episodes held against the single episodes' to
+    XDEV_TOL with the same argmax wherever the single episodes' top two lie
+    more than XDEV_LANE_MARGIN apart (the live composition's with no inner
+    steps, in two more drives: see DAMP_EPISODES), launch counts exact (the scan once a batch in the live composition,
+    never in the others; the edge kernel never), seconds per episode of
+    both, peak memory, and one profiled lane batch each."""
     damp = ["--device", "cuda:0", "--method", "dampnet_full_class", "--train_aug", "--inner_scan", "fused", "--eval_batch", "1",
             "--dataset", "synthetic", "--test_dataset", "synthetic", "--model", "ResNet10", "--image_size", "224",
             "--n_shot", "5", "--gen_examples", "17", "--fine_tune_epoch", "5", "--paths_json", paths_json]
@@ -2732,14 +2859,47 @@ def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
         row["launches_dampnet"] = counts[row["name"]]
     phase_profile(torch, finetune, damp, steady, 0, label="DampNet", setup_before=True)
     mark("DampNet eval and profile")
-    for label, extra in (("unsupervised", ["--unsupervised", "synthetic"]), ("nofinetune", ["--dampnet_eval",
-                                                                                          "nofinetune"])):
-        kernels.reset_launch_counts()
-        drive(torch, finetune, f"DampNet eval ({label})", damp + extra, 1)
-        counts = kernels.launch_counts()
-        print(f"DampNet eval ({label}) kernel launches: {counts}")
-        if any(counts.values()):
-            fail(f"the DampNet {label} eval adapts nothing, yet launched {counts}")
+    strict = damp + ["--dtype", "float32", "--inner_param_dtype", "float32"]
+    lanes = strict[: strict.index("--eval_batch")] + ["--eval_batch", str(LANES)] + strict[strict.index("--eval_batch") + 2 :]
+    launches = {}
+    for label, extra in (("live", []), ("unsupervised", ["--unsupervised", "synthetic"]),
+                         ("nofinetune", ["--dampnet_eval", "nofinetune"])):
+        _, one, steady1, counts1 = eval_scores(torch, finetune, f"DampNet eval ({label}, --eval_batch 1, strict f32)",
+                                               strict + extra, DAMP_EPISODES)
+        _, many, steady_l, counts_l = eval_scores(torch, finetune, f"DampNet eval ({label}, --eval_batch {LANES}, "
+                                                  f"strict f32)", lanes + extra, 2 * LANES)
+        scans = {"live": (DAMP_EPISODES, 2)}.get(label, (0, 0))
+        print(f"DampNet eval ({label}) kernel launches: --eval_batch 1 {counts1}, --eval_batch {LANES} {counts_l}")
+        if (counts1["fused_inner_scan"], counts_l["fused_inner_scan"]) != scans or counts1["edge_abs_diff_matmul"] \
+                or counts_l["edge_abs_diff_matmul"]:
+            fail(f"the DampNet {label} eval launched {counts1} / {counts_l}, not the scan {scans} times and the edge "
+                 f"kernel never")
+        for name, n in counts_l.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"DampNet eval ({label}): seconds/episode --eval_batch {LANES} {steady_l:.4f} vs --eval_batch 1 "
+              f"{steady1:.4f} (same call, strict f32): {steady1 / steady_l:.3f} x")
+        held = ""
+        if label == "live":  # the scores are held without the inner steps' sign chaos (DAMP_EPISODES)
+            print(f"DampNet eval (live): the full-depth lanes against the same {DAMP_EPISODES} episodes alone: max |d "
+                  f"scores| {float((many[:DAMP_EPISODES] - one).abs().max()):.3e} (not held: the inner steps' chaos)")
+            held, depth = " with --fine_tune_epoch 0", ["--fine_tune_epoch", "0"]
+            _, one, _, _ = eval_scores(torch, finetune, f"DampNet eval (live{held}, --eval_batch 1, strict f32)",
+                                       strict + extra + depth, DAMP_EPISODES)
+            _, many, _, _ = eval_scores(torch, finetune, f"DampNet eval (live{held}, --eval_batch {LANES}, strict f32)",
+                                        lanes + extra + depth, LANES)
+        got, want = many[:DAMP_EPISODES], one
+        diff = float((got - want).abs().max())
+        top2 = want.topk(2, dim=-1).values
+        flipped = (got.argmax(-1) != want.argmax(-1)) & ((top2[..., 0] - top2[..., 1]) > XDEV_LANE_MARGIN)
+        print(f"DampNet eval ({label}{held}): the lanes' scores against the same {DAMP_EPISODES} episodes alone: max "
+              f"|d scores| {diff:.3e}, {int(flipped.sum())} clear argmax flips (bound {XDEV_TOL:g}, no clear flip)")
+        if diff > XDEV_TOL or bool(flipped.any()):
+            fail(f"the DampNet {label} lanes part from the episodes alone by {diff:.3e}{held}")
+        phase_profile(torch, finetune, lanes + extra, steady_l, 0, label=f"DampNet {label}, {LANES} lanes",
+                      scan=label == "live", setup_before=True, episodes=LANES)
+        mark(f"DampNet {label} lanes and profile")
+    for row in rows:
+        row["launches_dampnet_lanes"] = launches[row["name"]]
 
 
 def chain_argv(flags: dict) -> list:
@@ -3056,30 +3216,47 @@ def main():
               f"{steady / steady_l:.3f} x")
         phase_profile(torch, finetune, lane_argv, steady_l, 3, label=f"{LANES} lanes", episodes=LANES)
         mark("5-shot lane eval and profile")
+        # the faithful eval's lanes (one warm batch, one timed), beside its --eval_batch 1 drive above
+        faithful_l = lane_base + ["--bn_mode", "minibatch", "--dtype", "float32", "--inner_param_dtype", "float32"]
+        kernels.reset_launch_counts()
+        steady_fl = drive(torch, finetune, f"faithful lane path (--eval_batch {LANES} --bn_mode minibatch, strict f32)",
+                          faithful_l, 2 * LANES)
+        counts_fl = kernels.launch_counts()
+        print(f"faithful lane batches' kernel launches: {counts_fl} (the edge kernel three times a batch on B = "
+              f"{15 * LANES} graphs; the scan never: the minibatch mode refuses it)")
+        if counts_fl["edge_abs_diff_matmul"] != 3 * 2 or counts_fl["fused_inner_scan"] != 0:
+            fail(f"the faithful lane batches launched {counts_fl}, not the edge kernel 3 times a batch and the scan never")
+        for row in rows:
+            row["launches_faithful_lanes"] = counts_fl[row["name"]]
+        print(f"seconds/episode faithful, --eval_batch {LANES} {steady_fl:.4f} vs --eval_batch 1 {steady_f:.4f} (same "
+              f"call): {steady_f / steady_fl:.3f} x")
+        phase_profile(torch, finetune, faithful_l, steady_fl, 3, label=f"faithful, {LANES} lanes", scan=False,
+                      episodes=LANES)
+        mark("faithful lane eval and profile")
         # the engine's knobs, each against its default in this call: --inner_gather and --inner_carry change the
         # linear member's eager loop (the fused scan keeps the GNN member's), --fanout_group_pass the GNN bank's
         # trunk passes; --ensemble_fuse pairs two eager loops, so it is timed on the eager path below
         for flags in (["--inner_gather", "epoch"], ["--inner_carry", "flat"],
                       ["--fanout_group_pass", str(FANOUT_GROUP_PASS)]):
             knob = drive(torch, finetune, f"lane path with {' '.join(flags)} (--eval_batch {LANES} --inner_scan fused)",
-                         lane_argv + flags, LANE_EPISODES)
+                         lane_argv + flags, KNOB_EPISODES)
             print(f"knob {' '.join(flags)}: seconds/episode {knob:.4f} vs the default's {steady_l:.4f} (fused lanes, "
                   f"same call): {knob / steady_l:.3f} x")
         eager_l = drive(torch, finetune, f"lane path (--eval_batch {LANES} --inner_scan eager)",
-                        lane_base + ["--inner_scan", "eager"], LANE_EPISODES)
+                        lane_base + ["--inner_scan", "eager"], KNOB_EPISODES)
         print(f"seconds/episode eager, --eval_batch {LANES} {eager_l:.4f} vs --eval_batch 1 {eager:.4f} (same call): "
               f"{eager / eager_l:.3f} x")
         knob = drive(torch, finetune, f"lane path with --ensemble_fuse lane (--eval_batch {LANES} --inner_scan eager)",
-                     lane_base + ["--inner_scan", "eager", "--ensemble_fuse", "lane"], LANE_EPISODES)
+                     lane_base + ["--inner_scan", "eager", "--ensemble_fuse", "lane"], KNOB_EPISODES)
         print(f"knob --ensemble_fuse lane: seconds/episode {knob:.4f} vs the default's {eager_l:.4f} (eager lanes, "
               f"same call): {knob / eager_l:.3f} x")
         mark("5-shot eager lanes and the engine's knobs")
         kernels.reset_launch_counts()
         drive(torch, finetune, f"lane path with --freeze_backbone (--eval_batch {LANES})",
-              lane_argv + ["--freeze_backbone"], LANE_EPISODES)
+              lane_argv + ["--freeze_backbone"], KNOB_EPISODES)
         counts_f = kernels.launch_counts()
         print(f"--freeze_backbone lane batches' kernel launches: {counts_f} (nothing adapts: no scan)")
-        if counts_f["fused_inner_scan"] != 0 or counts_f["edge_abs_diff_matmul"] != 3 * batches:
+        if counts_f["fused_inner_scan"] != 0 or counts_f["edge_abs_diff_matmul"] != 3 * (KNOB_EPISODES // LANES):
             fail(f"the frozen lane batches launched {counts_f}, not the edge kernel 3 times a batch and the scan never")
         kernels.reset_launch_counts()
         drive(torch, finetune_50, f"50-shot lane path (finetune_50 --eval_batch {LANES} --inner_scan fused)",
@@ -3128,7 +3305,8 @@ def main():
              "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
              "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet",
-             "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_lanes50",
+             "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_faithful_lanes",
+             "launches_dampnet_lanes", "launches_lanes50",
              "ms_lanes50", "bound_ms_lanes50", "launches_fw", "ms_fw", "launches_r18", "ms_r18", "launches_r34",
              "ms_r34", "launches_train_fw", "launches_ckpt", "launches_mesh", "launches_pipeline", "ms_pipeline",
              "plain_ms_pipeline", "bound_ms_pipeline", "backward_plain_ms_pipeline", "ms_pipeline_eval",

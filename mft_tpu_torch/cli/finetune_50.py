@@ -19,11 +19,13 @@ import sys
 from mft_tpu_torch.cli import finetune as finetune_cli
 
 
-def main(argv=None):
+def main(argv=None, **kw):
+    """``kw``: :func:`mft_tpu_torch.cli.finetune.main`'s keywords
+    (``mesh_devices``, ``keep_scores``)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not any(a.startswith("--n_shot") for a in argv):
         argv += ["--n_shot", "50"]
-    return finetune_cli.main(argv)
+    return finetune_cli.main(argv, **kw)
 
 
 if __name__ == "__main__":

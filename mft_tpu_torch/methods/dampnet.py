@@ -29,6 +29,12 @@ the same value (the reference's buffered numpy ``+=``).
 
 The GNN of every variant takes the plain edge op: ``DampNetCfg.gnn_cfg``
 does not pass ``use_pallas``, as in the JAX package.
+
+Episode lanes: the eval's scoring (:func:`dampnet_scores` outside the
+'corrupt' mode, :func:`recovered_projection`) also takes ``[E, n_way, slots,
+feat]``, ``E`` episodes in one call: the statistics and the recovery network
+per lane, the lanes' graphs in one GNN pass with per-lane BN statistics
+(``jax.vmap`` of the one-episode functions in the JAX package).
 """
 
 from __future__ import annotations
@@ -92,9 +98,9 @@ def method_cfg(method: str, feat_dim: int, n_way: int, n_support: int) -> DampNe
 
 def bilinear(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``out_k = a^T W_k b`` (``torch.nn.Bilinear`` without bias), summed in
-    at least f32."""
+    at least f32; ``b [..., f]`` (episode lanes) -> ``[..., k]``."""
     acc = torch.promote_types(a.dtype, torch.float32)
-    return torch.einsum("i,kij,j->k", a.to(acc), w.to(acc), b.to(acc)).to(a.dtype)
+    return torch.einsum("i,kij,...j->...k", a.to(acc), w.to(acc), b.to(acc)).to(a.dtype)
 
 
 def fresh_state(cfg: DampNetCfg, *, dtype=torch.float32, device="cpu") -> dict:
@@ -144,14 +150,15 @@ def update_prototypes(state: dict, all_feats: torch.Tensor) -> dict:
 
 
 def episode_stats(feats_episode: torch.Tensor, cfg: DampNetCfg):
-    """``(x_mean, x_std)`` of the support features ``[n_way, s+q, f]``:
-    'class' takes the std over the per-class support means, 'support' over
-    every support feature (both unbiased)."""
-    support = feats_episode[:, : cfg.n_support]
-    x_mean = support.mean(dim=(0, 1))
+    """``(x_mean, x_std)`` of the support features ``[..., n_way, s+q, f]``
+    (``[..., f]`` each): 'class' takes the std over the per-class support
+    means, 'support' over every support feature (both unbiased)."""
+    support = feats_episode[..., : cfg.n_support, :]
+    x_mean = support.mean(dim=(-3, -2))
     if cfg.stat == "class":
-        return x_mean, support.mean(dim=1).std(dim=0, correction=1)
-    return x_mean, support.reshape(-1, support.shape[-1]).std(dim=0, correction=1)
+        return x_mean, support.mean(dim=-2).std(dim=-2, correction=1)
+    flat = support.reshape(tuple(support.shape[:-3]) + (-1, support.shape[-1]))
+    return x_mean, flat.std(dim=-2, correction=1)
 
 
 def _mlp(params: dict, h: torch.Tensor, suffix: str) -> torch.Tensor:
@@ -162,11 +169,13 @@ def _mlp(params: dict, h: torch.Tensor, suffix: str) -> torch.Tensor:
 
 def recovery(params: dict, state: dict, x_mean: torch.Tensor, x_std: torch.Tensor):
     """``(mult, add)``: the NTN comparisons of the episode's statistics with
-    the source prototypes, through the two MLPs (dampnet_full_class.py:179-198)."""
+    the source prototypes, through the two MLPs (dampnet_full_class.py:179-198).
+    ``x_mean``, ``x_std`` ``[..., f]`` (a leading lane axis) -> ``[..., f]``."""
     pm, ps = state["proto_mean"], state["proto_std"]
-    ntn_m = bilinear(params["W_R"], pm, x_mean) + linear(torch.cat([pm, x_mean]), params["V_R"])
-    ntn_s = bilinear(params["W_R_std"], ps, x_std) + linear(torch.cat([ps, x_std]), params["V_R_std"])
-    h = torch.tanh(torch.cat([ntn_m, ntn_s]))
+    cat = lambda proto, x: torch.cat([proto.expand_as(x), x], dim=-1)
+    ntn_m = bilinear(params["W_R"], pm, x_mean) + linear(cat(pm, x_mean), params["V_R"])
+    ntn_s = bilinear(params["W_R_std"], ps, x_std) + linear(cat(ps, x_std), params["V_R_std"])
+    h = torch.tanh(torch.cat([ntn_m, ntn_s], dim=-1))
     return _mlp(params, h, ""), _mlp(params, h, "_add")
 
 
@@ -319,7 +328,9 @@ def dampnet_scores(params: dict, state: dict, feats_episode: torch.Tensor, cfg: 
                    mode: str, gen: Optional[torch.Generator] = None, unsup_stats=None,
                    corrupt_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scores ``[n_way * n_query, n_way]`` of an episode of backbone features
-    ``[n_way, s+q, feat]``.  ``mode``:
+    ``[n_way, s+q, feat]``, or ``[E, n_way * n_query, n_way]`` of ``E`` lanes
+    ``[E, n_way, s+q, feat]`` in one call (each lane's statistics and
+    recovery its own; every mode but 'corrupt').  ``mode``:
 
     * 'plain': no recovery (before the prototypes exist, :125-144);
     * 'corrupt': a training odd step: corrupt the features (``corrupt_x
@@ -333,8 +344,9 @@ def dampnet_scores(params: dict, state: dict, feats_episode: torch.Tensor, cfg: 
 
     The prototype variant's training modes compare with the rolling store's
     prototypes (dampnet.py:147-148,211-212), not the fixed ones."""
-    n_way, slots, f = feats_episode.shape
-    flat = feats_episode.reshape(n_way * slots, f)
+    n_way, slots, f = feats_episode.shape[-3:]
+    lead = tuple(feats_episode.shape[:-3])
+    flat = feats_episode.reshape(lead + (n_way * slots, f))
     if mode == "plain":
         return _fc_gnn_scores(params, feats_episode, cfg, n_query, freeze_head=False)
     if mode not in ("corrupt", "recover", "domain_shift", "unsup"):
@@ -345,6 +357,8 @@ def dampnet_scores(params: dict, state: dict, feats_episode: torch.Tensor, cfg: 
         pm, ps = store_prototypes(state)
         src = {**state, "proto_mean": pm, "proto_std": ps}
     if mode == "corrupt":
+        if lead:
+            raise ValueError("mode='corrupt' scores one episode, not a lane batch")
         if corrupt_x is None:
             if gen is None:
                 raise ValueError("mode='corrupt' needs a generator or corrupt_x")
@@ -360,8 +374,8 @@ def dampnet_scores(params: dict, state: dict, feats_episode: torch.Tensor, cfg: 
     else:
         x_mean, x_std = (t.detach() for t in episode_stats(feats_episode, cfg))
     mult, add = recovery(params, src, x_mean, x_std)
-    recovered = flat * mult + add
-    return _fc_gnn_scores(params, recovered.reshape(n_way, slots, f), cfg, n_query, freeze_head=False)
+    recovered = flat * mult.unsqueeze(-2) + add.unsqueeze(-2)
+    return _fc_gnn_scores(params, recovered.reshape(feats_episode.shape), cfg, n_query, freeze_head=False)
 
 
 def dampnet_loss(scores: torch.Tensor, n_way: int, n_query: int) -> torch.Tensor:
@@ -372,9 +386,13 @@ def dampnet_loss(scores: torch.Tensor, n_way: int, n_query: int) -> torch.Tensor
 def recovered_projection(params: dict, state: dict, feats_episode: torch.Tensor, cfg: DampNetCfg) -> torch.Tensor:
     """Recovered features through the fc projector ``[n_way, slots,
     gnn_dim]``: what the eval-time linear probe of
-    ``set_forward_adaptation_full`` trains on (dampnet_full_class.py:471-548)."""
-    n_way, slots, f = feats_episode.shape
+    ``set_forward_adaptation_full`` trains on (dampnet_full_class.py:471-548).
+    ``[E, n_way, slots, feat]`` -> ``[E, n_way, slots, gnn_dim]``: each
+    lane's recovery and BN statistics its own."""
+    n_way, slots, f = feats_episode.shape[-3:]
+    lead = tuple(feats_episode.shape[:-3])
     mult, add = recovery(params, state, *episode_stats(feats_episode, cfg))
-    h = linear(feats_episode.reshape(-1, f) * mult + add, params["fc"]["linear"])
-    h, _ = batch_norm(h, params["fc"]["bn"], None, use_batch_stats=True)
-    return h.reshape(n_way, slots, cfg.gnn_dim)
+    rec = feats_episode.reshape(lead + (n_way * slots, f)) * mult.unsqueeze(-2) + add.unsqueeze(-2)
+    h = linear(rec.reshape(-1, f), params["fc"]["linear"])
+    h, _ = batch_norm(h, params["fc"]["bn"], None, use_batch_stats=True, groups=math.prod(lead))
+    return h.reshape(lead + (n_way, slots, cfg.gnn_dim))

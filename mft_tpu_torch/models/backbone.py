@@ -247,7 +247,8 @@ class BNCtx(NamedTuple):
     update_stats: bool
     momentum: float
     sample_mask: Optional[torch.Tensor]
-    #: >1: batch statistics per contiguous group of N/groups rows (ops/norm.py)
+    #: >1: batch statistics per contiguous group of N/groups rows (ops/norm.py);
+    #: ``sample_mask`` is then one group's ``[N/groups]``, shared by the groups
     groups: int = 1
 
 
@@ -386,8 +387,10 @@ def apply_trunk(params, stats, x: torch.Tensor, *, cfg: ResNetCfg, train: bool,
     The frozen half of the adaptation split: its output is computed once
     per support bank instead of once per inner minibatch.  ``bn_groups >
     1``: ``x`` stacks that many groups (replica groups, episode lanes), each
-    with its own BN statistics (JAX ``apply_trunk``'s ``bn_groups``).  No
-    FWT noise: the eval passes none."""
+    with its own BN statistics (JAX ``apply_trunk``'s ``bn_groups``);
+    ``sample_mask`` (``[N / bn_groups]``) weighs each group's rows alike
+    (the faithful eval's lanes on one inner schedule).  No FWT noise: the
+    eval passes none."""
     cd = _cd(cfg)
     ctx = BNCtx(train, False, 0.1, sample_mask, bn_groups)
     if cfg.stem:

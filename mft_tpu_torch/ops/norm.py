@@ -7,7 +7,8 @@ and outputs and nothing mutates a module buffer.  Statistics are taken in
 is how the inner loop's ragged last minibatch keeps static shapes.
 ``groups`` takes batch statistics per contiguous group of leading rows: the
 eval's episode lanes (and replica groups) share one call and keep their own
-statistics.
+statistics; a ``sample_mask`` then weighs each group's rows alike (the
+faithful eval's lanes share one inner schedule).
 """
 
 from __future__ import annotations
@@ -19,9 +20,9 @@ import torch
 EPS = 1e-5  # torch default
 
 
-def _masked_moments(x: torch.Tensor, reduce_dims, mask: Optional[torch.Tensor]):
+def _masked_moments(x: torch.Tensor, reduce_dims, mask: Optional[torch.Tensor], row_dim: int = 0):
     """Mean / biased var over ``reduce_dims``, rows weighted by ``mask``
-    along dim 0.  Returns (mean, var, count) with keepdim shapes."""
+    along ``row_dim``.  Returns (mean, var, count) with keepdim shapes."""
     if mask is None:
         count = 1.0
         for d in reduce_dims:
@@ -30,11 +31,11 @@ def _masked_moments(x: torch.Tensor, reduce_dims, mask: Optional[torch.Tensor]):
         var = (x - mean).square().mean(dim=reduce_dims, keepdim=True)
         return mean, var, torch.tensor(count, dtype=x.dtype, device=x.device)
     shape = [1] * x.ndim
-    shape[0] = x.shape[0]
+    shape[row_dim] = x.shape[row_dim]
     w = mask.reshape(shape).to(x.dtype)
     per_row = 1
     for d in reduce_dims:
-        if d != 0:
+        if d != row_dim:
             per_row *= x.shape[d]
     count = mask.to(x.dtype).sum() * per_row
     mean = (x * w).sum(dim=reduce_dims, keepdim=True) / count
@@ -61,7 +62,9 @@ def batch_norm(
     ``groups > 1``: batch statistics per contiguous group of ``N / groups``
     rows along dim 0, equal to separate calls on the groups (JAX
     ``ops/norm.py`` ``groups``); batch statistics only, with no running-stat
-    update and no mask, as there.
+    update, as there.  ``sample_mask [N / groups]`` weighs every group's
+    rows alike, each group counting its own unmasked rows: the groups'
+    separate masked calls (JAX refuses a mask here and vmaps those calls).
 
     Returns ``(y, new_stats)``; ``new_stats`` is ``stats`` unless
     ``use_batch_stats and update_stats``, where the running update uses the
@@ -75,15 +78,13 @@ def batch_norm(
     bshape[cd] = x.shape[cd]
     shape = x.shape
     if groups > 1:
-        if not use_batch_stats or update_stats or sample_mask is not None:
-            raise ValueError("grouped BN takes batch statistics only, with no running-stat update and no mask")
+        if not use_batch_stats or update_stats:
+            raise ValueError("grouped BN takes batch statistics only, with no running-stat update")
         if x.shape[0] % groups:
             raise ValueError(f"{x.shape[0]} rows do not split into {groups} groups")
         # [G, N/G, ...]: the moments over every dim but the group and channel ones
         x = x.reshape((groups, x.shape[0] // groups) + tuple(x.shape[1:]))
-        red = tuple(d + 1 for d in reduce_dims)
-        mean = x.mean(dim=red, keepdim=True)
-        var = (x - mean).square().mean(dim=red, keepdim=True)
+        mean, var, _ = _masked_moments(x, tuple(d + 1 for d in reduce_dims), sample_mask, row_dim=1)
         bshape = [1] + bshape
         new_stats = stats
     elif use_batch_stats:

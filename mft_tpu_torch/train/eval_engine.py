@@ -29,18 +29,20 @@ support alone for ``linear_epochs`` (finetune.py:139-140).
 
 Episode lanes (``--eval_batch``): the members take ``E`` episodes at once,
 ``episodes [E, n_way, s+q, 3, S, S]`` with one ``torch.Generator`` per lane.
-In the episode BN mode each phase is one device batch for all lanes: the
-trunk passes stack the lanes with per-lane (and per-replica-group) BN
-statistics (``bn_groups``), the inner loop carries lane-stacked parameters
-and Adam state and sums the lanes' losses (``inner_fit`` with ``[L, T, B]``
-schedules; the fused scan takes the lanes in one call), the final block is a
-grouped conv (``apply_final_block_lanes``), and the heads score every lane
-in one pass (the GNN: one edge-kernel call per ``Wcompute`` for all lanes'
-graphs).  Each lane draws its augment parameters, classifier init and
-permutations from its own generator in the one-lane order, so a lane's
-answer does not depend on ``E`` or its slot.  The minibatch BN mode and
-DampNet's scoring and probe still run lane by lane.  The one-episode
-members (``gnn_member_scores`` ...) are the lane members on a batch of one.
+In both BN modes each phase is one device batch for all lanes: the trunk
+passes stack the lanes with per-lane (and per-replica-group) BN statistics
+(``bn_groups``; in the minibatch mode every inner step's trunk pass takes
+the step's mask in each lane), the inner loop carries lane-stacked
+parameters and Adam state and sums the lanes' losses (``inner_fit`` with
+``[L, T, B]`` schedules; the fused scan takes the lanes in one call), the
+final block is a grouped conv (``apply_final_block_lanes``), and the heads
+score every lane in one pass (the GNN: one edge-kernel call per
+``Wcompute`` for all lanes' graphs; DampNet's recovery network once for all
+lanes, and its probe one lane-stacked loop).  Each lane draws its augment
+parameters, classifier init and permutations from its own generator in the
+one-lane order, so a lane's answer does not depend on ``E`` or its slot.
+The one-episode members (``gnn_member_scores`` ...) are the lane members on
+a batch of one.
 
 Each phase of a member runs inside a ``torch.profiler.record_function``
 range named in :data:`PHASES` (``<phase>:<member>``), so a profile of one
@@ -134,8 +136,9 @@ def bank_labels(spec: EpisodeSpec, replicas: int, device="cpu") -> torch.Tensor:
 
 
 def _bank_images(replicas: torch.Tensor) -> torch.Tensor:
-    """``[R, n_way, n_support, 3, S, S]`` -> ``[R * n_way * n_support, 3, S, S]``."""
-    return replicas.reshape((-1,) + tuple(replicas.shape[3:]))
+    """``[..., R, n_way, n_support, 3, S, S]`` -> ``[..., R * n_way * n_support,
+    3, S, S]`` (a leading lane axis stays)."""
+    return replicas.reshape(tuple(replicas.shape[:-6]) + (-1,) + tuple(replicas.shape[-3:]))
 
 
 def _lane(tree, i: int):
@@ -205,14 +208,12 @@ def _member_bank(backbone_params, backbone_stats, supports, gens, *, bcfg, tcfg:
     """One member's bank ``(fmap_bank, bank_x, n_replicas)`` for
     :func:`_adapt_block`.  Raw supports ``[E, n_way, n_support, 3, H0, W0]``
     (episode mode) become the frozen trunk's feature banks ``[E, span, C, h,
-    w]``; a replica bank ``[1, R, n_way, n_support, 3, S, S]`` (minibatch
-    mode, one lane) stays images ``[1, rows, 3, S, S]``, whole: ``clean_only``
-    does not cut it, the linear member's ``perm_span`` keeps its steps on
+    w]``; the lanes' replica banks ``[E, R, n_way, n_support, 3, S, S]``
+    (minibatch mode) stay images ``[E, rows, 3, S, S]``, whole: ``clean_only``
+    does not cut them, the linear member's ``perm_span`` keeps its steps on
     replica 0, the clean group (eval_engine.py:417-432 of the JAX package)."""
     if supports.dim() == 7:
-        if supports.shape[0] != 1:
-            raise ValueError(f"the minibatch BN mode adapts one lane at a time, got {supports.shape[0]}")
-        return None, _bank_images(supports[0])[None], supports.shape[1]
+        return None, _bank_images(supports), supports.shape[1]
     trunk_p, _ = bb.adapt_split(backbone_params)
     trunk_s, _ = bb.adapt_split(backbone_stats)
     fmap = _bank_fmap(trunk_p, trunk_s, supports, gens, bcfg=bcfg, aug_cfg=aug_cfg, gen_examples=gen_examples,
@@ -226,18 +227,20 @@ def _prepare_adapt(params, stats, bank_y, *, bcfg: bb.ResNetCfg, tcfg: TransferC
     """One member's inner-loop task ``(p0, loss_fn, tx, icfg, finish)`` with
     ``finish(adapted) -> (block, head)``: the adapted tree is the final
     block (GNN member) or ``{"adapt": block, "head": head}`` (linear member).
-    Exactly one bank is given:
+    Exactly one bank is given, lane-stacked; the block (and ``head``) carry a
+    leading ``[E]`` and ``loss_fn(p, idx [E, B], w [B]) -> [E]`` gathers each
+    lane's rows and runs the lanes' final blocks in one grouped pass:
 
-    * ``fmap_bank [E, span, C, h, w]``, the lanes' trunk feature banks: the
-      block (and ``head``) carry a leading ``[E]``, ``loss_fn(p, idx [E, B],
-      w [B]) -> [E]`` gathers each lane's rows and runs the lanes' final
-      blocks in one grouped pass; with ``gather='epoch'`` it is ``loss_fn(p,
-      {"x": rows [E, B, ...], "y": labels [E, B]}, w)``
+    * ``fmap_bank [E, span, C, h, w]``, the lanes' trunk feature banks; with
+      ``gather='epoch'`` the loss is ``loss_fn(p, {"x": rows [E, B, ...],
+      "y": labels [E, B]}, w)``
       (:func:`~mft_tpu_torch.train.inner_loop.inner_fit_epochwise`);
-    * ``bank_x [rows, 3, S, S]`` (one lane, unstacked): each step gathers its
-      images and runs the whole backbone, batch statistics masked by the
-      step's weights in every BN layer; the trunk is a constant, so only the
-      block and the head get gradients; ``loss_fn(p, idx [B], w) -> scalar``.
+    * ``bank_x [E, rows, 3, S, S]``, the lanes' image banks (minibatch BN
+      mode): each step runs the trunk on the lanes' ``E * B`` images in one
+      pass, each lane's BN statistics its own and masked by the step's
+      weights, then the lanes' final blocks, so every BN layer of the
+      backbone sees the minibatch; the trunk is a constant (run without a
+      graph), so only the block and the head get gradients.
 
     ``--freeze_backbone`` runs the block with its running statistics and
     trains only the head (the block's optimizer is SGD at rate 0, JAX
@@ -245,10 +248,10 @@ def _prepare_adapt(params, stats, bank_y, *, bcfg: bb.ResNetCfg, tcfg: TransferC
     if (fmap_bank is None) == (bank_x is None):
         raise ValueError("give exactly one of fmap_bank (episode BN mode) and bank_x (minibatch BN mode)")
     trunk_p, block_p = bb.adapt_split(params)
-    _, block_s = bb.adapt_split(stats)
+    trunk_s, block_s = bb.adapt_split(stats)
     bn_train = not tcfg.freeze_backbone
-    bank = fmap_bank[0] if fmap_bank is not None else bank_x
-    span = perm_span if perm_span is not None else bank.shape[0]
+    bank = fmap_bank if fmap_bank is not None else bank_x
+    span = perm_span if perm_span is not None else bank.shape[1]
     icfg = InnerLoopCfg(epochs=epochs, batch_size=tcfg.batch_size, bank_size=span)
     if tcfg.inner_param_dtype != "float32":
         pd = getattr(torch, tcfg.inner_param_dtype)
@@ -256,23 +259,25 @@ def _prepare_adapt(params, stats, bank_y, *, bcfg: bb.ResNetCfg, tcfg: TransferC
         block_p = cast(block_p)
         head = cast(head) if head is not None else None
 
-    if fmap_bank is not None:
-        block_p = _expand(block_p, fmap_bank.shape[0])
-        lanes = torch.arange(fmap_bank.shape[0], device=fmap_bank.device)[:, None]
+    n_lanes = bank.shape[0]
+    block_p = _expand(block_p, n_lanes)
+    lanes = torch.arange(n_lanes, device=bank.device)[:, None]
 
-        def rows_loss(block, h, rows, y, w):
-            feats = bb.apply_final_block_lanes(block, block_s, rows, cfg=bcfg, train=bn_train, sample_mask=w)
-            return ce_loss(feats if h is None else classifier_logits(h, feats), y, w)
+    def rows_loss(block, h, rows, y, w):
+        feats = bb.apply_final_block_lanes(block, block_s, rows, cfg=bcfg, train=bn_train, sample_mask=w)
+        return ce_loss(feats if h is None else classifier_logits(h, feats), y, w)
 
-        if gather == "epoch":
-            member_loss = lambda block, h, chunk, w: rows_loss(block, h, chunk["x"], chunk["y"], w)
-        else:
-            member_loss = lambda block, h, idx, w: rows_loss(block, h, fmap_bank[lanes, idx], bank_y[idx], w)
+    if bank_x is not None:
+        def member_loss(block, h, idx, w):  # the lanes' [E, B] images through the trunk in one pass
+            x = bank_x[lanes, idx]
+            with torch.no_grad():
+                fmap = bb.apply_trunk(trunk_p, trunk_s, x.reshape((-1,) + tuple(x.shape[2:])), cfg=bcfg,
+                                      train=bn_train, sample_mask=w, bn_groups=n_lanes if bn_train else 1)
+            return rows_loss(block, h, fmap.reshape(tuple(x.shape[:2]) + tuple(fmap.shape[1:])), bank_y[idx], w)
+    elif gather == "epoch":
+        member_loss = lambda block, h, chunk, w: rows_loss(block, h, chunk["x"], chunk["y"], w)
     else:
-        def member_loss(block, h, idx, w):
-            feats, _ = bb.apply_backbone(bb.adapt_merge(trunk_p, block), stats, bank_x[idx], cfg=bcfg,
-                                         train=bn_train, sample_mask=w)
-            return ce_loss(feats if h is None else classifier_logits(h, feats), bank_y[idx], w)
+        member_loss = lambda block, h, idx, w: rows_loss(block, h, fmap_bank[lanes, idx], bank_y[idx], w)
 
     adam = opt.torch_adam if tcfg.opt_state_dtype == "float32" else opt.torch_adam_lowmem
     if head is None:
@@ -359,28 +364,24 @@ def _check_modes(tcfg: TransferCfg):
 def _adapt_block(params, stats, bank_y, gens, *, bcfg, tcfg, epochs, head=None, perm_span=None, fmap_bank=None,
                  bank_x=None, schedule=None):
     """Fine-tune the final block (and the optional head) of every lane on
-    its bank (see :func:`_prepare_adapt`; ``bank_x [1, rows, ...]``, one
-    lane).  ``perm_span``: the permutations cover only the first rows (the
-    linear member's clean-support-only quirk).  ``head``, ``schedule``:
-    lane-stacked.  Returns the lane-stacked ``(block, head)``.
+    its bank (see :func:`_prepare_adapt`: ``fmap_bank`` or ``bank_x``, both
+    lane-stacked).  ``perm_span``: the permutations cover only the first
+    rows (the linear member's clean-support-only quirk).  ``head``,
+    ``schedule``: lane-stacked.  Returns the lane-stacked ``(block, head)``.
     ``tcfg.inner_scan == 'fused'`` sends the head-less (GNN) member through
     the fused scan; with a head the loop stays eager, per ``inner_gather``
-    and ``inner_carry``."""
+    (the episode BN mode's feature bank only, as in JAX) and
+    ``inner_carry``."""
     _check_modes(tcfg)
     if tcfg.inner_scan == "fused" and bank_x is not None:
         raise ValueError("inner_scan='fused' needs a feature bank (bn_mode='episode')")
-    kw = dict(bcfg=bcfg, tcfg=tcfg, epochs=epochs, perm_span=perm_span)
-    if bank_x is not None:
-        sched = None if schedule is None else (schedule[0][0], schedule[1])
-        p0, loss_fn, tx, icfg, finish = _prepare_adapt(params, stats, bank_y, head=None if head is None else _lane(
-            head, 0), bank_x=bank_x[0], **kw)
-        block, h = finish(inner_fit(loss_fn, p0, tx, gens[0], icfg, schedule=sched, device=bank_x.device))
-        return _stack1(block), (None if h is None else _stack1(h))
-    lanes, dev = fmap_bank.shape[0], fmap_bank.device
+    bank = fmap_bank if fmap_bank is not None else bank_x
+    lanes, dev = bank.shape[0], bank.device
     fused = tcfg.inner_scan == "fused" and head is None
-    epochwise = tcfg.inner_gather == "epoch" and not fused
+    epochwise = tcfg.inner_gather == "epoch" and not fused and fmap_bank is not None
     p0, loss_fn, tx, icfg, finish = _prepare_adapt(params, stats, bank_y, head=head, fmap_bank=fmap_bank,
-                                                   gather="epoch" if epochwise else "step", **kw)
+                                                   bank_x=bank_x, gather="epoch" if epochwise else "step",
+                                                   bcfg=bcfg, tcfg=tcfg, epochs=epochs, perm_span=perm_span)
     if fused:
         with torch.no_grad():
             return finish(_adapt_block_fused(p0, bank_y, fmap_bank, gens, bcfg=bcfg, tcfg=tcfg, icfg=icfg,
@@ -427,7 +428,7 @@ def _finetune_features(backbone_params, backbone_stats, episodes, supports, gens
     on each lane's final block (features-as-logits inner loss), then each
     clean episode embedded by its adapted backbone with batch-stats BN.
     Returns ``[E, n_way, s+q, feat]``.  ``supports``: the raw supports
-    (episode mode) or one lane's replica bank (minibatch mode);
+    (episode mode) or the lanes' replica banks (minibatch mode);
     ``member`` names the profiler ranges."""
     with record_function(f"bank_fmap:{member}"):
         fmap, bank_x, n_rep = _member_bank(backbone_params, backbone_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
@@ -480,9 +481,9 @@ def proto_member_lanes(backbone_params, backbone_stats, episodes, supports, gens
         return torch.softmax(proto_scores(feats[:, :, :ns], feats[:, :, ns:], spec), dim=-1)
 
 
-def _draw_heads(gens, bcfg, spec: EpisodeSpec, device):
+def _draw_heads(gens, feat_dim: int, n_way: int, device, dtype=torch.float32):
     """Each lane's classifier init, drawn from its generator."""
-    heads = [init_classifier(g, bcfg.feat_dim, spec.n_way, zero_bias=False, device=device) for g in gens]
+    heads = [init_classifier(g, feat_dim, n_way, zero_bias=False, dtype=dtype, device=device) for g in gens]
     return {k: torch.stack([h[k] for h in heads]) for k in heads[0]}
 
 
@@ -501,7 +502,7 @@ def linear_member_lanes(backbone_params, backbone_stats, episodes, supports, gen
     init instead of the draws from ``gens``."""
     dev = supports.device
     if head0 is None:
-        head0 = _draw_heads(gens, bcfg, spec, dev)
+        head0 = _draw_heads(gens, bcfg.feat_dim, spec.n_way, dev)
     with record_function("bank_fmap:linear"):
         fmap, bank_x, n_rep = _member_bank(backbone_params, backbone_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                            aug_cfg=aug_cfg, gen_examples=gen_examples, clean_only=True)
@@ -516,27 +517,42 @@ def linear_member_lanes(backbone_params, backbone_stats, episodes, supports, gen
     return _linear_scores(head, feats, spec)
 
 
-def dampnet_probe(damp_params, damp_state, feats, gen, *, dcfg, spec: EpisodeSpec, schedule=None, head0=None):
+def dampnet_probe_lanes(damp_params, damp_state, feats, gens, *, dcfg, spec: EpisodeSpec, schedule=None, head0=None):
     """The linear probe of ``set_forward_adaptation_full``
-    (dampnet_full_class.py:471-548): recover the episode's features from its
-    class statistics, project them to ``gnn_dim``, train a linear head on
-    the support's projections (100 epochs of batch 4, the reference's SGD).
-    Returns ``(head, query projections)``.  ``schedule`` / ``head0``:
-    explicit minibatch order and head init instead of draws from ``gen``."""
-    dev = feats.device
+    (dampnet_full_class.py:471-548) for ``E`` lanes ``feats [E, n_way, s+q,
+    f]``: recover each episode's features from its class statistics,
+    project them to ``gnn_dim``, train a linear head on the support's
+    projections (100 epochs of batch 4, the reference's SGD), all lanes in
+    one lane-stacked loop of 700 steps.  Each lane draws its head init, then
+    its schedule, from its own generator, as one lane alone does.  Returns
+    ``(heads, query projections [E, q, gnn_dim])``, lane-stacked.
+    ``schedule`` (``[E, T, B]`` indices) / ``head0``: explicit lane-stacked
+    minibatch order and head init instead of draws from ``gens``."""
+    dev, n_lanes = feats.device, feats.shape[0]
     with torch.no_grad():
         proj = recovered_projection(damp_params, damp_state, feats, dcfg)
-    z_support = proj[:, : spec.n_support].reshape(spec.support_size, -1)
+    z_support = proj[:, :, : spec.n_support].reshape(n_lanes, spec.support_size, -1)
     y_support = support_labels(spec, dev)
     if head0 is None:
-        head0 = init_classifier(gen, dcfg.gnn_dim, spec.n_way, zero_bias=False, dtype=proj.dtype, device=dev)
+        head0 = _draw_heads(gens, dcfg.gnn_dim, spec.n_way, dev, dtype=proj.dtype)
+    lanes = torch.arange(n_lanes, device=dev)[:, None]
 
     def loss_fn(p, idx, w):
-        return ce_loss(classifier_logits(p, z_support[idx]), y_support[idx], w)
+        return ce_loss(classifier_logits(p, z_support[lanes, idx]), y_support[idx], w)
 
     icfg = InnerLoopCfg(epochs=100, batch_size=4, bank_size=spec.support_size)
-    head = inner_fit(loss_fn, head0, opt.reference_probe_sgd(0.01), gen, icfg, schedule=schedule, device=dev)
-    return head, proj[:, spec.n_support :].reshape(spec.query_size, -1)
+    head = inner_fit(loss_fn, head0, opt.reference_probe_sgd(0.01), gens, icfg, schedule=schedule, device=dev)
+    return head, proj[:, :, spec.n_support :].reshape(n_lanes, spec.query_size, -1)
+
+
+def dampnet_probe(damp_params, damp_state, feats, gen, *, dcfg, spec: EpisodeSpec, schedule=None, head0=None):
+    """:func:`dampnet_probe_lanes` of one episode ``feats [n_way, s+q, f]``
+    -> ``(head, query projections [q, gnn_dim])``; ``schedule`` ``(idx [T,
+    B], w)`` / ``head0``: explicit instead of draws from ``gen``."""
+    head, z_query = dampnet_probe_lanes(damp_params, damp_state, feats[None], [gen], dcfg=dcfg, spec=spec,
+                                        schedule=None if schedule is None else stack_schedules([schedule]),
+                                        head0=None if head0 is None else _stack1(head0))
+    return _lane(head, 0), z_query[0]
 
 
 def dampnet_member_lanes(backbone_params, backbone_stats, damp_params, damp_state, episodes, supports, gens, *,
@@ -560,8 +576,9 @@ def dampnet_member_lanes(backbone_params, backbone_stats, damp_params, damp_stat
       dampnet_full.py:298-348): the frozen backbone's features recovered
       from an unlabeled dataset's statistics, no probe.
 
-    The bank, adapt and embed phases run all lanes at once; the recovery
-    scoring and the probe run lane by lane.  The reference's 5-shot driver
+    Every phase runs all lanes at once: one :func:`dampnet_scores` call
+    (the recovery network and the GNN) and one probe loop
+    (:func:`dampnet_probe_lanes`) a batch.  The reference's 5-shot driver
     reaches ``set_forward`` without ``domain_shift`` and fails there (README
     "Faithfully reproduced quirks"); the 50-shot composition serves every
     shot count, as in JAX."""
@@ -578,17 +595,13 @@ def dampnet_member_lanes(backbone_params, backbone_stats, damp_params, damp_stat
                                  train=not frozen)
     mode, kw = ("unsup", {"unsup_stats": unsup_stats}) if unsup_stats is not None else ("domain_shift", {})
     with torch.no_grad(), record_function("score:dampnet"):
-        out = torch.softmax(torch.stack([dampnet_scores(damp_params, damp_state, f, dcfg, spec.n_query, mode=mode, **kw)
-                                         for f in feats]), dim=-1)
+        out = torch.softmax(dampnet_scores(damp_params, damp_state, feats, dcfg, spec.n_query, mode=mode, **kw), dim=-1)
     if unsup_stats is not None or eval_mode == "finetune" or not with_linear_fusion:
         return out
     with record_function("score:dampnet"):
-        probes = []
-        for f, g in zip(feats, gens):
-            head, z_query = dampnet_probe(damp_params, damp_state, f, g, dcfg=dcfg, spec=spec)
-            with torch.no_grad():  # the probe's softmax, halved (finetune.py:411)
-                probes.append(torch.softmax(classifier_logits(head, z_query), dim=1) / 2.0)
-        return out + torch.stack(probes)
+        head, z_query = dampnet_probe_lanes(damp_params, damp_state, feats, gens, dcfg=dcfg, spec=spec)
+        with torch.no_grad():  # the probe's softmax, halved (finetune.py:411)
+            return out + torch.softmax(classifier_logits(head, z_query), dim=-1) / 2.0
 
 
 def ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats, gnn_head, episodes, supports, gens, *,
@@ -625,7 +638,7 @@ def _fused_ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats
     numbers."""
     dev = supports.device
     if head0 is None:
-        head0 = _draw_heads(gens, bcfg, spec, dev)
+        head0 = _draw_heads(gens, bcfg.feat_dim, spec.n_way, dev)
     with record_function("bank_fmap:linear"):
         fmap_lin, _, n_lin = _member_bank(baseline_params, baseline_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                           aug_cfg=aug_cfg, gen_examples=gen_examples, clean_only=True)
@@ -739,13 +752,12 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
     stats, head)`` (``all``, ``gnnnet``, ``gnnnet_maml``),
     ``protonet=(params, stats)`` or ``dampnet=(params, stats, damp_params,
     damp_state)`` (with ``dcfg`` and ``dampnet_eval``; ``unsup_stats=(mean,
-    std)`` selects the unsupervised composition).  In the episode BN mode
-    the ``E`` episodes run as lanes of one batch; in the minibatch BN mode
-    one at a time, each building its replica bank once for both members of
-    ``--method all``.  ``fn(..., inner_schedule=, head0=)`` (episode BN mode)
-    take the member's lane-stacked ``(idx, w)`` schedule (for ``all`` the
-    pair ``(linear, gnn)``) and the linear member's classifier init in place
-    of their draws from ``gens``."""
+    std)`` selects the unsupervised composition).  The ``E`` episodes run
+    as lanes of one batch in both BN modes; the minibatch mode builds each
+    lane's replica bank once for both members of ``--method all``.  ``fn(...,
+    inner_schedule=, head0=)`` take the member's lane-stacked ``(idx, w)``
+    schedule (for ``all`` the pair ``(linear, gnn)``) and the linear
+    member's classifier init in place of their draws from ``gens``."""
     if method not in METHODS:
         raise ValueError(f"the port evaluates --method {'|'.join(METHODS)}, not {method!r}")
     _check_modes(tcfg)
@@ -775,12 +787,7 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
         if len(gens) != base_episodes.shape[0]:
             raise ValueError(f"{base_episodes.shape[0]} episodes need as many generators, got {len(gens)}")
         draws = {k: v for k, v in (("inner_schedule", inner_schedule), ("head0", head0)) if v is not None}
-        if tcfg.bn_mode == "minibatch":  # lane by lane
-            if draws:
-                raise ValueError("explicit inner schedules and heads are taken in the episode BN mode only")
-            scores = torch.cat([run(models, base_episodes[i : i + 1], gens[i : i + 1], {}) for i in range(len(gens))])
-        else:
-            scores = run(models, base_episodes, gens, draws)
+        scores = run(models, base_episodes, gens, draws)
         return scores, lane_accuracies(scores, spec)
 
     return program

@@ -149,9 +149,9 @@ def test_grouped_batch_norm_matches_per_group_and_jax(channel_dim):
                                            groups=3)[0])
     want = np.moveaxis(want, -1, 1) if channel_dim == 1 else want
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
-    with pytest.raises(ValueError, match="batch statistics only"):
-        batch_norm(tx, tp, None, use_batch_stats=True, channel_dim=channel_dim, groups=3,
-                   sample_mask=torch.ones(x.shape[0], dtype=torch.float64))
+    stats = {"mean": torch.zeros(4, dtype=torch.float64), "var": torch.ones(4, dtype=torch.float64)}
+    with pytest.raises(ValueError, match="batch statistics only"):  # grouped BN updates no running statistics
+        batch_norm(tx, tp, stats, use_batch_stats=True, update_stats=True, channel_dim=channel_dim, groups=3)
 
 
 def test_trunk_and_backbone_bn_groups_equal_per_group_passes(setup):

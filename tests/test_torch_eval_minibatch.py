@@ -177,7 +177,7 @@ def test_minibatch_mode_masks_every_bn_layer(shared):
     spec = tep.EpisodeSpec(*SPEC)
     gp, gs = convert.from_jax(*s["models"]["gnn"])
     tcfg = tee.TransferCfg(bn_mode="minibatch", opt_state_dtype="float32")
-    bank_x = tee._bank_images(_nchw(s["bank"]))
+    bank_x = tee._bank_images(_nchw(s["bank"]))[None]  # one lane
     bank_y = tee.bank_labels(spec, GEN_EXAMPLES + 3)
     p0, loss_fn, _, _, _ = tee._prepare_adapt(gp, gs, bank_y, bcfg=TCFG, tcfg=tcfg, epochs=1, head=None,
                                               bank_x=bank_x)
@@ -186,7 +186,7 @@ def test_minibatch_mode_masks_every_bn_layer(shared):
     def loss_and_grads(idx, w):
         leaves = {k: v.clone().requires_grad_(True) for k, v in p0.items() if not isinstance(v, dict)}
         p = {k: (leaves[k] if k in leaves else v) for k, v in p0.items()}
-        loss = loss_fn(p, idx, w)
+        loss = loss_fn(p, idx[None], w)  # the lane's [1, B] rows
         return float(loss.detach()), torch.autograd.grad(loss, [leaves["conv1"], leaves["conv2"]])
 
     padded = loss_and_grads(torch.cat([real, torch.tensor([0])]), torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0],

@@ -328,8 +328,9 @@ def test_heldout_scores_match_jax(chains):
 def test_explicit_draws_reach_every_ensemble_route(chains):
     """The eval program's explicit draws drive the lane-fused ensemble
     (``ensemble_fuse='lane'``: both members' inner loops step together) to
-    the sequential members' scores, within f64 rounding (rtol 1e-10); the
-    minibatch BN mode, which runs lane by lane, refuses them."""
+    the sequential members' scores, within f64 rounding (rtol 1e-10); in the
+    minibatch BN mode the program's lanes at the same draws give the member
+    lanes' scores on the replica banks the program builds (rtol 1e-10)."""
     port, _ = chains
     eman, models, kw, draws = port["eval_inputs"]
     base = sp._episodes(eman, kw["spec"], LANES, sp.BASE, 70, "cpu")
@@ -337,9 +338,20 @@ def test_explicit_draws_reach_every_ensemble_route(chains):
     got, accs = fused(models, base, [None] * LANES, **draws)
     np.testing.assert_allclose(got.numpy(), port["eval"].scores[0].numpy(), rtol=1e-10, atol=1e-14)
     assert accs == port["eval"].accs
-    minibatch = tee.make_eval_program(method="all", **{**kw, "tcfg": kw["tcfg"]._replace(bn_mode="minibatch")})
-    with pytest.raises(ValueError, match="episode BN mode only"):
-        minibatch(models, base, [None] * LANES, **draws)
+    tcfg = kw["tcfg"]._replace(bn_mode="minibatch")
+    minibatch = tee.make_eval_program(method="all", **{**kw, "tcfg": tcfg})
+    got, accs = minibatch(models, base, [None] * LANES, **draws)
+    spec, acfg = kw["spec"], kw["aug_cfg"]
+    episodes = taug.center_batch(base, acfg.image_size, dtype=taug.pipeline_dtype(kw["bcfg"].compute_dtype))
+    banks = torch.stack([taug.make_eval_replicas(None, s, acfg, kw["gen_examples"]) for s in base[:, :, : spec.n_support]])
+    mkw = dict(bcfg=kw["bcfg"], spec=spec, tcfg=tcfg, aug_cfg=acfg, gen_examples=kw["gen_examples"])
+    sched_lin, sched_gnn = draws["inner_schedule"]
+    want = (tee.linear_member_lanes(*models["baseline"], episodes, banks, [None] * LANES, inner_schedule=sched_lin,
+                                    head0=draws["head0"], **mkw)
+            + tee.gnn_member_lanes(*models["gnn"], episodes, banks, [None] * LANES, gcfg=kw["gcfg"],
+                                   inner_schedule=sched_gnn, **mkw))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-10, atol=1e-14)
+    assert accs == tee.lane_accuracies(want, spec)
 
 
 def test_main_on_the_cpu_at_the_smallest_counts(monkeypatch):
