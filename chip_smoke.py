@@ -4,7 +4,9 @@
 Run from the root of a checkout: ``python3 chip_smoke.py`` (``--kernels-only`` stops after phase 3;
 ``--mesh-scaling`` builds the kernels, then runs only the eval's mesh on 1, 2, 4, ... of the visible
 cards; ``--pipeline`` builds the kernels, then runs only the synthetic pipeline at the JAX script's
-defaults: see phase 7).  It needs a
+defaults: see phase 7; ``--distributed``, on four cards, builds the kernels, then runs only the
+data-parallel dry run, ``mft_tpu_torch.parallel.dryrun --full`` over nccl at world 2 and 4: see
+phase 4).  It needs a
 CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and nothing else
 of the JAX package; it imports no ``jax``.  Phases, any failure exits
 non-zero:
@@ -66,7 +68,20 @@ non-zero:
    strengths' updates exactly 0 on both; the noise dropped on the final
    block, planted on the card, must fail), and a ResNet18 lane batch against
    its episodes alone on the CPU (its identity shortcuts dropped, planted,
-   must fail);
+   must fail); then an nccl process group of world 1 in this process: one
+   episodic GnnNet step of two episodes (224 px) and one ``--method all
+   --inner_scan fused`` lane batch through the group path, each bit-equal
+   to the ``group=None`` path, with both kernels launched on it.
+   ``--distributed`` runs the dry run at world 2 and 4 instead, one rank a
+   card: every training step (one episode a rank) held against the same
+   step of the whole batch on one card with this phase's rules (loss,
+   gradients, 99.9 % of the update elements, stats) beside two planted
+   faults that must break them (the gradients summed over the ranks, not
+   divided by the world; the baseline's BN over the ranks with a rank-local
+   backward), every rank's trees bit-equal, the eval's and the live
+   DampNet eval's scores equal to one card's, the edge kernel exactly 3
+   times a local GnnNet episode and the scan once a rank's lane batch;
+   each step's seconds beside one card's and the all-reduce's share;
 5. drive the main path through ``mft_tpu_torch.cli.finetune.main`` at full
    width — ``--method all --use_pallas --inner_scan fused``, ResNet10 at
    224 px, 5-way 5-shot, 15 queries, ``gen_examples=17``,
@@ -83,9 +98,10 @@ non-zero:
    timeline and to print where the time goes (per eval phase, per kernel,
    idle share); then the 50-shot main path through
    ``mft_tpu_torch.cli.finetune_50`` (the same flags, 2 episodes, launch
-   counts set to 0 before and read after, both must be above 0, and one
-   profiled episode), the faithful 5-shot eval (``--bn_mode minibatch``,
-   strict f32, 2 episodes and one profiled) and a ``--method protonet``
+   counts set to 0 before and read after, both must be above 0; then two
+   episodes and one profiled of its GNN member alone, ``--method
+   gnnnet``), the faithful 5-shot eval (``--bn_mode minibatch``,
+   strict f32, 2 episodes; its profile is the lanes' below) and a ``--method protonet``
    eval (2 episodes), each with its seconds per episode and peak memory;
    then the episode lanes of ``--eval_batch 5`` (the JAX driver's default):
    the fused main path for 15 episodes (three batches, the first the warm-up;
@@ -161,7 +177,8 @@ batch's times and bounds; launches on the faithful and the DampNet lane
 paths; launches and the profiled batch's device time on
 the ResNet10_FW, ResNet18 and ResNet34 lane paths, launches in
 ResNet10_FW's training, and launches on the ``.ckpt``-driven and mesh
-runs, and on the synthetic pipeline's short chain); the last line is
+runs, and on the synthetic pipeline's short chain, and on the world-1
+process group's path, per rank); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -289,34 +306,31 @@ FUSED_PRODUCT_FAULT = "dead rows of the last 64-row tile not zero"
 #: host's time inside the C call is the enqueue alone
 FUSED_ENQUEUE_STEPS = 60
 #: card vs CPU, one training step of each stage at 64 px, ResNet10 at full
-#: width, strict f32, the same weights, inputs and inner schedule.  The loss:
-#: the same forward in another summation order (cuDNN against the CPU's
-#: convolutions, the edge kernel within 1e-4), relative.  The gradients: per
-#: tensor, the largest difference within TRAIN_GRAD_TOL of that tensor's
-#: largest gradient plus 1e-5 of the largest in the whole tree (a gradient
-#: that is zero in exact arithmetic, a bias before a batch-statistics BN, is
-#: f32 noise with no sign in common).  The running stats: largest difference
-#: within TRAIN_STATS_TOL of each tensor's largest value.  The update: Adam's
-#: first step is about lr * sign(g), so a gradient within noise of zero
-#: flips its element by up to 2 * lr; the share of all elements whose updates
-#: agree within 1e-2 * lr must reach TRAIN_UPDATE_SHARE (the analytically zero
-#: gradients alone, the GNN's biases before its BNs, are 3.5e-4 of them)
-TRAIN_LOSS_TOL = 1e-4
-TRAIN_GRAD_TOL = 1e-3
-TRAIN_STATS_TOL = 1e-4
-TRAIN_UPDATE_SHARE = 0.999
+#: width, strict f32, the same weights, inputs and inner schedule, held with
+#: the step rules of mft_tpu_torch/parallel/dryrun.py (its constants, which
+#: the data-parallel dry run shares).  The loss: the same forward in another
+#: summation order (cuDNN against the CPU's convolutions, the edge kernel
+#: within 1e-4), relative (LOSS_RTOL).  The gradients: per tensor, the largest
+#: difference within GRAD_TOL of that tensor's largest gradient plus
+#: GRAD_TREE_FLOOR of the largest in the whole tree (a gradient that is zero
+#: in exact arithmetic, a bias before a batch-statistics BN, is f32 noise with
+#: no sign in common).  The running stats: largest difference within
+#: STATS_TOL of each tensor's largest value.  The update: Adam's first step is
+#: about lr * sign(g), so a gradient within noise of zero flips its element by
+#: up to 2 * lr; the share of all elements whose updates agree within 1e-2 *
+#: lr must reach UPDATE_SHARE (the analytically zero gradients alone, the
+#: GNN's biases before its BNs, are 3.5e-4 of them)
 #: widened after the first call on the card (the gradient rule alone read
 #: 2.368 of its allowance in the episodic step, all of it in a tensor of
 #: sums with heavy cancellation: the second Wcompute's edge weight gradient
 #: sums 2700 products of both signs to 3e-3; the CPU's own f32 gradient
 #: there reads 1.0 of the allowance against f64).  Each device carries its
 #: own f32 error against the exact gradient, so each tensor's allowance
-#: gains TRAIN_F32_FACTOR times the CPU's f32 error against the same step in
+#: gains F32_FACTOR times the CPU's f32 error against the same step in
 #: f64 on the CPU (the edge op plain in f64), measured in the same run.
 #: What the wider bound still catches is shown in the same run: the card's
 #: episodic step with the edge forward as one bf16 product (TRAIN_FAULT;
 #: about 200 times the widened allowance in a CPU emulation) must fail it
-TRAIN_F32_FACTOR = 4.0
 TRAIN_FAULT = "edge forward as one bf16 product, lo terms dropped"
 #: the meta fine-tune's loss, gradients and stats come after 105 inner
 #: Adam(0.01) steps, each of which flips the near-zero-gradient elements the
@@ -369,10 +383,9 @@ TRAIN_FT_FAULT = "fo_maml_reattach dropped, the adapted block detached"
 #: elements: the recover step read 3.6e-3 of the update elements apart on the
 #: first call, equal decisions or not.  How far is measured in the same run:
 #: the CPU's f32 step against f64; the card may part from the CPU in at most
-#: DAMP_UPDATE_FACTOR times that share of the update elements (and never
-#: fewer than 1 - TRAIN_UPDATE_SHARE).  A fault per mode that the rules must
+#: dryrun.py's UPDATE_FACTOR times that share of the update elements (and
+#: never fewer than 1 - UPDATE_SHARE).  A fault per mode that the rules must
 #: catch, planted on the card (DAMP_FAULTS)
-DAMP_UPDATE_FACTOR = 3.0
 DAMP_FAULTS = {"plain": "backbone features detached, the head trains alone",
                "corrupt": "fc.linear left trainable on a corrupt step",
                "recover": "mult and add swapped"}
@@ -403,6 +416,18 @@ PIPELINE_TAIL, PIPELINE_TAIL_LOSS, PIPELINE_MIN_ACC, PIPELINE_EAGER_GAP = 10, 0.
 #: --pipeline: each stage's profiler window inside the full run, after its
 #: warm-up: (the step or batch after which it opens, the steps or batches it spans)
 PIPELINE_WINDOWS = {"baseline": (300, 5), "episodic": (100, 5), "fine_tune": (20, 2), "eval": (3, 2)}
+#: the 50-shot profile's flags: the GNN member alone at full depth (the driver's --method gnnnet, reading the
+#: checkpoint --method all reads, gnnnet_aug at 600), the member the 50-shot geometry changes (130-node graphs, the
+#: 5000-row bank, 5000 fused steps).  The --method all episode's
+#: linear member runs 1000 eager steps whatever the flags (its 20 epochs over the support are fixed in the driver;
+#: --gen_examples 1 cut only the GNN member's bank): under the profiler 20.5 s of its 20.8 s and 102 s of the script
+#: on one H100, where the per-step picture is the 5-shot profiles'
+PROFILE_50_FLAGS = ["--method", "gnnnet", "--train_aug", "--save_iter", "600"]
+#: the default run's process group of world 1: episodes of its episodic GnnNet step
+WORLD1_EPISODES = 2
+#: --distributed: the worlds of the dry run (one rank a card) and the seconds each may take
+DIST_WORLDS = (2, 4)
+DIST_TIMEOUT = 480.0
 #: H100 SXM published peaks (dense): f32 outside the tensor cores, bf16 in
 #: the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1686,27 +1711,17 @@ class ReluDecisions:
 
 
 def _readings_apart(a, b, floor=None):
-    """How far two step readings part: relative loss, the worst tensor's
-    gradient error against TRAIN_GRAD_TOL's rule (as a multiple of its
-    allowance), the gradients' relative L2 over the whole tree, the share of
-    update elements that differ by more than 1e-2 * lr, the worst stats
-    tensor (as a share of its largest value).  ``floor``: per gradient
-    tensor, the CPU's f32 error against f64, TRAIN_F32_FACTOR of which
-    joins that tensor's allowance."""
-    la, ga, ua, sa = a
-    lb, gb, ub, sb = b
-    scale = max(float(v.abs().max()) for v in gb.values())
-    floor = floor or {}
-    grad_worst = max(float((ga[k] - v).abs().max())
-                     / (TRAIN_GRAD_TOL * float(v.abs().max()) + 1e-5 * scale + TRAIN_F32_FACTOR * floor.get(k, 0.0))
-                     for k, v in gb.items())
-    num = sum(float((ga[k] - v).square().sum()) for k, v in gb.items())
-    den = sum(float(v.square().sum()) for v in gb.values())
-    disagree = sum(int(((ua[k] - v).abs() > 1e-2 * 1e-3).sum()) for k, v in ub.items())
-    total = sum(v.numel() for v in ub.values())
-    stats = max(float((sa[k] - v).abs().max()) / max(float(v.abs().max()), 1e-30) for k, v in sb.items())
-    return {"loss": abs(la - lb) / abs(lb), "grad_worst": grad_worst, "grad_rel_l2": math.sqrt(num / den),
-            "update_disagree": disagree / total, "stats": stats}
+    """How far two step readings ``(loss, gradients, updates, stats)`` part
+    (``dryrun.readings_apart``: relative loss, the worst tensor's gradient
+    error as a multiple of its allowance, the gradients' relative L2 over
+    the whole tree, the share of update elements that differ by more than
+    1e-2 * lr, the worst stats tensor as a share of its largest value).
+    ``floor``: per gradient tensor, the CPU's f32 error against f64,
+    F32_FACTOR of which joins that tensor's allowance."""
+    from mft_tpu_torch.parallel import dryrun
+
+    named = lambda r: dict(zip(("loss", "grads", "updates", "stats"), r))
+    return dryrun.readings_apart(named(a), named(b), floor)
 
 
 def _worst_tensors(a, b, floor, n: int = 4) -> str:
@@ -1714,11 +1729,13 @@ def _worst_tensors(a, b, floor, n: int = 4) -> str:
     update readings: the ``n`` largest gradient errors as multiples of their
     allowance, and the ``n`` tensors with the most update elements apart
     (count / size)."""
+    from mft_tpu_torch.parallel import dryrun
+
     _, ga, ua, _ = a
     _, gb, ub, _ = b
     scale = max(float(v.abs().max()) for v in gb.values())
-    ratio = {k: float((ga[k] - v).abs().max()) / (TRAIN_GRAD_TOL * float(v.abs().max()) + 1e-5 * scale
-                                                  + TRAIN_F32_FACTOR * floor.get(k, 0.0)) for k, v in gb.items()}
+    ratio = {k: float((ga[k] - v).abs().max()) / (dryrun.GRAD_TOL * float(v.abs().max()) + dryrun.GRAD_TREE_FLOOR * scale
+                                                  + dryrun.F32_FACTOR * floor.get(k, 0.0)) for k, v in gb.items()}
     apart = {k: int(((ua[k] - v).abs() > 1e-2 * 1e-3).sum()) for k, v in ub.items()}
     top = lambda d: sorted(d, key=lambda k: -d[k])[:n]
     return ("gradient " + ", ".join(f"{k} {ratio[k]:.3f}" for k in top(ratio)) + "; updates apart "
@@ -1730,7 +1747,7 @@ def phase_train_cross_device(torch, dev):
     edge kernel; the meta fine-tune in the episode BN mode with a fixed inner
     schedule; the 50-shot GnnNet step of ``cli.train_50``, 130-node graphs)
     on the card against the same step on the CPU, at 64 px, ResNet10 at full
-    width, strict f32.  Bounds: TRAIN_* above (the 50-shot step under the
+    width, strict f32.  Bounds: dryrun.py's rules, TRAIN_FT_* above (the 50-shot step under the
     episodic step's, its planted fault included)."""
     import numpy as np
 
@@ -1738,6 +1755,7 @@ def phase_train_cross_device(torch, dev):
     from mft_tpu_torch.methods import gnnnet as gn
     from mft_tpu_torch.methods.baseline import init_classifier
     from mft_tpu_torch.models import backbone as bb
+    from mft_tpu_torch.parallel import dryrun
     from mft_tpu_torch.train.inner_loop import InnerLoopCfg, schedule_from_perms
 
     g = torch.Generator().manual_seed(4)
@@ -1785,8 +1803,7 @@ def phase_train_cross_device(torch, dev):
             if not rep.within_reach():
                 fail(f"the card's {stage} step takes ReLU decisions the CPU's f32 rounding cannot explain: {rep.flips}")
         got = _readings_apart(card, cpu, f32_floor)
-        bounds = {"loss": TRAIN_LOSS_TOL, "grad_worst": 1.0, "grad_rel_l2": math.inf, "stats": TRAIN_STATS_TOL,
-                  "update_disagree": 1.0 - TRAIN_UPDATE_SHARE}
+        bounds = dryrun.rule_bounds({})
         line = ""
         if stage.startswith("episodic"):  # the planted fault, on the card, the same inputs
             from unittest import mock
@@ -1811,11 +1828,11 @@ def phase_train_cross_device(torch, dev):
                 fail(f"the training cross-device check does not catch {TRAIN_FAULT}")
         if stage == "fine_tune":
             floor = _readings_apart(cpu, exact)
-            bounds = {"loss": min(TRAIN_FT_CAP, max(TRAIN_LOSS_TOL, TRAIN_FT_FACTOR * floor["loss"])),
+            bounds = {"loss": min(TRAIN_FT_CAP, max(dryrun.LOSS_RTOL, TRAIN_FT_FACTOR * floor["loss"])),
                       "grad_worst": math.inf,
-                      "grad_rel_l2": max(TRAIN_GRAD_TOL, TRAIN_FT_FACTOR * floor["grad_rel_l2"]),
-                      "stats": max(TRAIN_STATS_TOL, TRAIN_FT_FACTOR * floor["stats"]),
-                      "update_disagree": min(TRAIN_FT_DISAGREE_CAP, max(1.0 - TRAIN_UPDATE_SHARE,
+                      "grad_rel_l2": max(dryrun.GRAD_TOL, TRAIN_FT_FACTOR * floor["grad_rel_l2"]),
+                      "stats": max(dryrun.STATS_TOL, TRAIN_FT_FACTOR * floor["stats"]),
+                      "update_disagree": min(TRAIN_FT_DISAGREE_CAP, max(1.0 - dryrun.UPDATE_SHARE,
                                                                         TRAIN_FT_FACTOR * floor["update_disagree"]))}
             from unittest import mock
 
@@ -1844,6 +1861,7 @@ def _damp_step_readings(torch, dev, model, eps, mode, corrupt_x=None, dtype=None
     inputs."""
     from torch.utils import _pytree as pytree
 
+    from mft_tpu_torch.parallel import dryrun
     from mft_tpu_torch.train import optimizers as opt
     from mft_tpu_torch.train import steps
     from mft_tpu_torch.utils.checkpoint import keyed
@@ -1853,12 +1871,12 @@ def _damp_step_readings(torch, dev, model, eps, mode, corrupt_x=None, dtype=None
     params, stats, dstate = pytree.tree_map(to, params), pytree.tree_map(to, stats), pytree.tree_map(to, dstate)
     eps = to(eps)
     cx = None if corrupt_x is None else to(corrupt_x)
-    tx = opt.torch_adam(1e-3)
-    # an optimizer that keeps the step's gradients as its state, and moves nothing
-    grab = opt.Optimizer(lambda p: None, lambda g, st, p: (pytree.tree_map(torch.zeros_like, g), g))
-    kw = dict(mode=mode, bcfg=bcfg, dcfg=dcfg, spec=spec, corrupt_x=cx)
-    _, _, grads, _ = steps.dampnet_train_step(params, stats, None, dstate, eps, None, tx=grab, **kw)
-    new_p, new_s, _, m = steps.dampnet_train_step(params, stats, tx.init(params), dstate, eps, None, tx=tx, **kw)
+    # one step with Adam; the gradients Adam was given are kept on the way
+    sink = {}
+    tx = dryrun.recording(opt.torch_adam(1e-3), sink)
+    new_p, new_s, _, m = steps.dampnet_train_step(params, stats, tx.init(params), dstate, eps, None, tx=tx,
+                                                  mode=mode, bcfg=bcfg, dcfg=dcfg, spec=spec, corrupt_x=cx)
+    grads = sink["grads"]
     cpu = lambda t: {k: v.detach().cpu() for k, v in keyed(t).items()}
     before = cpu(params)
     return float(m["loss"]), cpu(grads), {k: v - before[k] for k, v in cpu(new_p).items()}, cpu(new_s)
@@ -1884,6 +1902,7 @@ def phase_dampnet_cross_device(torch, dev):
     from mft_tpu_torch.methods import dampnet as dn
     from mft_tpu_torch.models import backbone as bb
     from mft_tpu_torch.ops.augment import AugmentCfg
+    from mft_tpu_torch.parallel import dryrun
     from mft_tpu_torch.train import eval_engine as ee
     from mft_tpu_torch.train import steps
 
@@ -1915,8 +1934,7 @@ def phase_dampnet_cross_device(torch, dev):
         exact = _damp_step_readings(torch, "cpu", model, eps, mode, cx, dtype=torch.float64)
         floor = {k: float((v.double() - exact[1][k]).abs().max()) for k, v in cpu_own[1].items()}
         update_floor = _readings_apart(cpu_own, exact)["update_disagree"]
-        bounds = {"loss": TRAIN_LOSS_TOL, "grad_worst": 1.0, "grad_rel_l2": math.inf, "stats": TRAIN_STATS_TOL,
-                  "update_disagree": max(1.0 - TRAIN_UPDATE_SHARE, DAMP_UPDATE_FACTOR * update_floor)}
+        bounds = dryrun.rule_bounds({"update_floor": update_floor})
         rep = ReluDecisions(torch, replay=rec.masks, leaky=True)
         with rep:
             cpu = _damp_step_readings(torch, "cpu", model, eps, mode, cx)
@@ -2045,9 +2063,9 @@ def phase_backbones_cross_device(torch, dev):
     """The other backbones on the card against the CPU, full width, 64 px,
     strict f32: one ResNet10_FW episodic GnnNet step (the edge kernel on the
     card), its FWT noise drawn once on the host and fed to both devices,
-    under the episodic step's rules (TRAIN_*, the CPU replaying the card's
+    under the episodic step's rules (dryrun.py's, the CPU replaying the card's
     ReLU and the GNN's leaky-ReLU decisions within RELU_REACH; the update
-    share against DAMP_UPDATE_FACTOR times the CPU's own f32-vs-f64 share,
+    share against UPDATE_FACTOR times the CPU's own f32-vs-f64 share,
     as the DampNet step) and with every noise strength's update exactly 0
     on both, beside FWT_FAULT on the card, which must fail them.  Why the
     DampNet step's form: on the first call on an H100 the step read
@@ -2066,6 +2084,7 @@ def phase_backbones_cross_device(torch, dev):
     from mft_tpu_torch.core.episode import EpisodeSpec
     from mft_tpu_torch.methods import gnnnet as gn
     from mft_tpu_torch.models import backbone as bb
+    from mft_tpu_torch.parallel import dryrun
 
     g = torch.Generator().manual_seed(6)
     bcfg = bb.resnet10_fw()
@@ -2093,8 +2112,7 @@ def phase_backbones_cross_device(torch, dev):
     if moved:
         fail(f"the {stage} step moved the frozen noise strengths {moved}")
     floor = _readings_apart(cpu_own, exact)
-    bounds = {"loss": TRAIN_LOSS_TOL, "grad_worst": 1.0, "grad_rel_l2": math.inf, "stats": TRAIN_STATS_TOL,
-              "update_disagree": max(1.0 - TRAIN_UPDATE_SHARE, DAMP_UPDATE_FACTOR * floor["update_disagree"])}
+    bounds = dryrun.rule_bounds({"update_floor": floor["update_disagree"]})
     got = _readings_apart(card, cpu, f32_floor)
     print(f"{stage}: the CPU's f32 step against f64: " + ", ".join(f"{k} {v:.3e}" for k, v in floor.items())
           + "; card vs CPU, worst tensors: " + _worst_tensors(card, cpu, f32_floor))
@@ -2902,6 +2920,103 @@ def phase_dampnet_eval(torch, kernels, finetune, rows, paths_json: str):
         row["launches_dampnet_lanes"] = launches[row["name"]]
 
 
+def phase_world1_group(torch, dev) -> dict:
+    """The data-parallel path in this process: an nccl process group of
+    world 1 on the card (NCCL refuses two ranks on one card), then one
+    episodic GnnNet step of two episodes (ResNet10 at 224 px, 5-way 5-shot,
+    16 queries, the edge kernel) and one ``--method all --use_pallas
+    --inner_scan fused`` lane batch of the eval (``evaluate`` over the group), each
+    through the group path and held bit for bit against the ``group=None``
+    path (``parallel/dryrun.py``'s pieces, cuDNN deterministic).  Returns
+    the group path's kernel launches, which must be above 0 for both
+    kernels."""
+    import torch.distributed as dist
+
+    from mft_tpu_torch import kernels
+    from mft_tpu_torch.parallel import distributed as pdist
+    from mft_tpu_torch.parallel import dryrun
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    pdist.init_process_group(0, 1, f"tcp://127.0.0.1:{dryrun.free_port()}", "cuda")
+    try:
+        group, sizes = dist.group.WORLD, dryrun.CUDA
+        m = dryrun.seeded_model(dev, sizes, group)
+        fn, params = dryrun.step_call("episodic", m, sizes, WORLD1_EPISODES, dev, None)
+        want, _, alone_s = dryrun.step_readings(fn, params, None, dev)
+        kernels.reset_launch_counts()
+        got, _, group_s = dryrun.step_readings(fn, params, group, dev)
+        launches = kernels.launch_counts()
+        apart = [k for k in ("grads", "updates", "stats")
+                 if not all(torch.equal(got[k][n], v) for n, v in want[k].items())]
+        if got["loss"] != want["loss"] or apart:
+            fail(f"the world-1 group's episodic step is not bit-equal to group=None: loss {got['loss']} vs "
+                 f"{want['loss']}, {apart} apart")
+        ev = dryrun.rank_eval(m, sizes, group, dev, "all", {"baseline": (m.feature, m.stats),
+                                                            "gnn": (m.feature, m.stats, m.head)})
+        if not torch.equal(ev["scores"], ev["ref_scores"]):
+            fail(f"the world-1 group's eval scores part from one device's by "
+                 f"{float((ev['scores'] - ev['ref_scores']).abs().max()):.3e}")
+        for name, c in ev["launches"].items():
+            launches[name] += c
+        print(f"process group of world 1 (nccl): episodic GnnNet step of {WORLD1_EPISODES} episodes bit-equal to "
+              f"group=None (loss {got['loss']:.7f}; {group_s:.4f} s vs {alone_s:.4f} s, first calls), one "
+              f"--eval_batch {sizes.eval_lanes} lane batch's scores bit-equal to one device's; group path kernel "
+              f"launches {launches} (step {3 * WORLD1_EPISODES} edge, eval {ev['launches']})")
+        if min(launches.values()) == 0:
+            fail(f"a kernel was never launched on the world-1 group path: {launches}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def phase_distributed(torch) -> dict:
+    """``--distributed``: ``parallel/dryrun.py --full`` over nccl at world 2
+    and 4 (one rank a card; every world the visible cards allow), at
+    ResNet10's width, 224 px, 5-way 5-shot, 16 queries, ``use_pallas``: one
+    episode a rank through every training step, then a ``--method all
+    --inner_scan fused`` lane batch a rank (and the live DampNet eval).  The
+    dry run asserts its rules (``dryrun.check``: each step within phase 4's
+    rules of the one-card step, the planted faults outside them, the trees
+    bit-equal, the eval's scores equal, the launches exact); here each
+    step's readings against its bounds, its seconds at world W beside one
+    card's (the same global batch) and the all-reduce's share are printed."""
+    from mft_tpu_torch.parallel import dryrun
+
+    n = torch.cuda.device_count()
+    worlds = [w for w in DIST_WORLDS if w <= n]
+    if not worlds:
+        fail(f"--distributed needs at least {DIST_WORLDS[0]} cards, {n} visible")
+    summary = {}
+    for world in worlds:
+        try:
+            results = dryrun.run(world, "cuda", full=True, timeout=DIST_TIMEOUT, repeats=2)
+            lines = dryrun.check(results, on_card=True)
+        except (AssertionError, RuntimeError, TimeoutError) as e:
+            fail(f"the dry run at world {world}: {e}")
+        for line in lines:
+            print(line)
+        r0 = results[0]
+        for kind, row in r0["steps"].items():
+            share = row["allreduce_seconds"] / row["seconds"]
+            print(f"distributed world {world}, {kind}: {row['seconds']:.4f} s a step ({world} cards, one episode "
+                  f"each) vs {row['ref_seconds']:.4f} s on one card (the same {world} episodes); all-reduce, the wait "
+                  f"for the slowest rank included, {row['allreduce_seconds'] * 1e3:.3f} ms, {share:.4f} of the step; "
+                  "rules: "
+                  + ", ".join(f"{k} {row['apart'][k]:.3e} <= {v:.3e}" for k, v in dryrun.rule_bounds(row["apart"]).items()))
+        summary[world] = {
+            "seconds": {k: row["seconds"] for k, row in r0["steps"].items()},
+            "one_card_seconds": {k: row["ref_seconds"] for k, row in r0["steps"].items()},
+            "allreduce_ms": {k: row["allreduce_seconds"] * 1e3 for k, row in r0["steps"].items()},
+            "allreduce_alone_ms": {k: ms for k, (_, ms) in r0["allreduce_alone"].items()},
+            "faults": {f["kind"]: dryrun.rules_broken(f["apart"]) for f in r0["faults"]},
+            "launches": [{k: row["launches"] for k, row in r["steps"].items()}
+                         | {"eval": r["eval"]["launches"], "damp_eval": r["damp_eval"]["launches"]} for r in results]}
+        mark(f"distributed, world {world}")
+    return summary
+
+
 def chain_argv(flags: dict) -> list:
     """The synthetic pipeline's argv on the card with both kernels on, at
     ``flags`` (its count flags; the script's defaults where absent)."""
@@ -3115,6 +3230,15 @@ def main():
                                                  "count": torch.cuda.device_count()}}))
         return
 
+    if "--distributed" in sys.argv[1:]:  # data-parallel training and eval over nccl, one rank a card
+        for line in smi.stdout.strip().splitlines()[1:]:
+            print(line)
+        summary = phase_distributed(torch)
+        print(json.dumps({"distributed": summary}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
+
     if "--pipeline" in sys.argv[1:]:  # the synthetic pipeline at the JAX script's defaults
         phase_pipeline(torch, kernels, dev)
         mark("pipeline")
@@ -3144,6 +3268,8 @@ def main():
     mark("DampNet step and eval card vs CPU")
     phase_backbones_cross_device(torch, dev)
     mark("ResNet10_FW step and ResNet18 lanes card vs CPU")
+    launches_world1 = phase_world1_group(torch, dev)
+    mark("process group of world 1")
 
     # 5. the main path at full width
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as save_dir:
@@ -3175,7 +3301,7 @@ def main():
         # the 50-shot main path (cli.finetune_50): 130-node graphs, a 5000-row bank, 5000 fused steps
         argv50 = base + ["--inner_scan", "fused", "--eval_batch", "1"]
         kernels.reset_launch_counts()
-        steady50 = drive(torch, finetune_50, "50-shot main path (finetune_50 --inner_scan fused)", argv50, EPISODES_50)
+        drive(torch, finetune_50, "50-shot main path (finetune_50 --inner_scan fused)", argv50, EPISODES_50)
         counts50 = kernels.launch_counts()
         print(f"50-shot main path kernel launches: {counts50}")
         for row in rows:
@@ -3183,14 +3309,17 @@ def main():
             if row["launches_50"] == 0:
                 fail(f"kernel {row['name']} was never launched on the 50-shot main path")
         mark("50-shot eval")
-        phase_profile(torch, finetune_50, argv50, steady50, counts50["edge_abs_diff_matmul"] // EPISODES_50,
-                      label="50-shot")
+        # profiled with PROFILE_50_FLAGS, the idle share against the same flags' steady seconds
+        argv50p = argv50 + PROFILE_50_FLAGS
+        steady50p = drive(torch, finetune_50, "50-shot path, --method gnnnet", argv50p, 2)
+        phase_profile(torch, finetune_50, argv50p, steady50p, counts50["edge_abs_diff_matmul"] // EPISODES_50,
+                      label="50-shot, --method gnnnet")
         mark("50-shot profile")
         # the faithful eval: the whole backbone on every inner minibatch, strict f32
         faithful = common + ["--bn_mode", "minibatch", "--dtype", "float32", "--inner_param_dtype", "float32"]
+        # (its profile is the five-lane faithful batch's below, the same path)
         steady_f = drive(torch, finetune, "faithful 5-shot eval (--bn_mode minibatch, strict f32)", faithful, 2)
-        phase_profile(torch, finetune, faithful, steady_f, 3, label="faithful", scan=False)
-        mark("faithful eval and profile")
+        mark("faithful eval")
         # ProtoNet: the GNN member's adaptation, prototype scores; the fused scan, no edge kernel
         kernels.reset_launch_counts()
         drive(torch, finetune, "ProtoNet eval (--method protonet --inner_scan fused)",
@@ -3301,6 +3430,8 @@ def main():
         row["launches_pipeline"] = counts_chain[row["name"]]
     mark("synthetic pipeline, short chain")
 
+    for row in rows:
+        row["launches_distributed"] = [launches_world1[row["name"]]]  # per rank of the world-1 group
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
@@ -3310,7 +3441,8 @@ def main():
              "ms_lanes50", "bound_ms_lanes50", "launches_fw", "ms_fw", "launches_r18", "ms_r18", "launches_r34",
              "ms_r34", "launches_train_fw", "launches_ckpt", "launches_mesh", "launches_pipeline", "ms_pipeline",
              "plain_ms_pipeline", "bound_ms_pipeline", "backward_plain_ms_pipeline", "ms_pipeline_eval",
-             "plain_ms_pipeline_eval", "bound_ms_pipeline_eval", "ms_pipeline_scan", "bound_ms_pipeline_scan"]
+             "plain_ms_pipeline_eval", "bound_ms_pipeline_eval", "ms_pipeline_scan", "bound_ms_pipeline_scan",
+             "launches_distributed"]
     # keys of a path that a kernel off that path (or a number this run does not measure) leaves null
     print(json.dumps({"kernels": [{k: row.get(k) for k in order} for row in rows]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

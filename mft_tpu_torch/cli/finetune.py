@@ -10,7 +10,9 @@ The episodes run in batches of ``--eval_batch`` lanes (the last batch may
 be short) on each card of the mesh (``--device cuda``: every visible card,
 one worker process each; ``cuda:<i>``: that card alone); each keeps its own
 generator, seeded by its index, so its answer does not depend on the batch
-or the mesh.  Per-episode accuracies go to stdout and to
+or the mesh.  Under a ``torch.distributed`` process group (``evaluate``'s
+``group``) the ranks take the mesh's place, one shard each.
+Per-episode accuracies go to stdout and to
 ``<save_dir>/eval_log.jsonl``; ``--episode_cache`` keeps the decoded
 episodes, ``--trace_dir`` writes a profiler trace.
 At ``--n_shot >= 50`` the GnnNet head is the compressed 50-shot variant
@@ -45,6 +47,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from mft_tpu_torch import config as cfg_mod
@@ -56,6 +59,7 @@ from mft_tpu_torch.methods import dampnet as dn
 from mft_tpu_torch.methods import gnnnet as gn
 from mft_tpu_torch.models import backbone as bb
 from mft_tpu_torch.ops.augment import center_batch
+from mft_tpu_torch.parallel import distributed as pdist
 from mft_tpu_torch.parallel import mesh as pmesh
 from mft_tpu_torch.train import eval_engine as ee
 from mft_tpu_torch.utils import checkpoint as ckpt
@@ -73,8 +77,8 @@ class EvalResult(NamedTuple):
     episodes_per_sec: float
     #: every episode's scores on the CPU, in episode order (``keep_scores``), else None
     scores: Optional[list] = None
-    #: kernel launches of the mesh's worker processes, summed (empty for a one-device mesh, which runs
-    #: in the calling process: its own counts hold them)
+    #: kernel launches of the mesh's worker processes (or of every rank of ``group``), summed (empty for a
+    #: one-device mesh, which runs in the calling process: its own counts hold them)
     worker_launches: Optional[dict] = None
     #: on a wider mesh, each batch's seconds of each shard in its worker (host clock around the synchronized lane
     #: batch); the batch's own seconds add the wait for the worker's episodes and the answers' way back
@@ -205,38 +209,98 @@ def _generators(seeds):
     return [torch.Generator().manual_seed(s) for s in seeds]
 
 
+def _shard_step(program, models, episodes, device):
+    """A shard's lane-batch step: each call takes the generator seeds of
+    the shard's next lane batch, its images from ``episodes`` (an iterator
+    over the shard's own episodes in order), and answers with its scores on
+    the CPU, its accuracies, this process's kernel launches in the batch and
+    the batch's seconds."""
+    from mft_tpu_torch import kernels
+
+    def step(seeds):
+        images = np.stack([next(episodes)[0] for _ in seeds])
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        scores, accs = _run_shard(program, models, images, _generators(seeds), device)
+        scores = scores.float().cpu()
+        launches = {name: n - before[name] for name, n in kernels.launch_counts().items()}
+        return scores, accs, launches, time.perf_counter() - t0
+
+    return step
+
+
 def _shard_worker(device, payload):
     """A shard's worker process (``pmesh.ShardPool``): the parent's numerics
     settings, the models from their bytes onto ``device``, the lane program,
     and its own episodes (``indices``, every shard's in batch order) loaded
-    from its copy of the stream, ahead of the device as in one process.
-    Each message, the generator seeds of the shard's next lane batch, answers
-    with its scores on the CPU, its accuracies, this process's kernel
-    launches and the seconds of the lane batch."""
-    from mft_tpu_torch import kernels
-
+    from its copy of the stream, ahead of the device as in one process;
+    then :func:`_shard_step`."""
     program_kw, blob, threads, tf32, stream, indices = payload
     torch.set_num_threads(threads)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     if device.type == "cuda":
         torch.cuda.set_device(device)
     models = torch.load(io.BytesIO(blob), map_location=device, weights_only=False)
-    program = ee.make_eval_program(**program_kw)
-    episodes = stream.iterate(indices)
+    return _shard_step(ee.make_eval_program(**program_kw), models, stream.iterate(indices), device)
 
-    def step(seeds):
-        images = np.stack([next(episodes)[0] for _ in seeds])
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        scores, accs = _run_shard(program, models, images, _generators(seeds), device)
-        scores = scores.float().cpu()
-        return scores, accs, kernels.launch_counts(), time.perf_counter() - t0
 
-    return step
+def _transfer_cfg(a) -> ee.TransferCfg:
+    return ee.TransferCfg(fine_tune_epochs=a.fine_tune_epoch, inner_param_dtype=a.inner_param_dtype,
+                          inner_scan=a.inner_scan, bn_mode=a.bn_mode, freeze_backbone=a.freeze_backbone,
+                          ensemble_fuse=a.ensemble_fuse, fanout_group_pass=a.fanout_group_pass,
+                          inner_gather=a.inner_gather, inner_carry=a.inner_carry)
+
+
+def _episode_stream(a, manifest, spec):
+    if a.episode_manifest:
+        stream = ReplayEpisodeStream.from_json(a.episode_manifest, spec, base_size=a.base_size,
+                                               root=a.episode_manifest_root)
+        a.iter_num = len(stream)
+        print(f"replaying {a.iter_num} recorded episodes from {a.episode_manifest}")
+        return stream
+    return EpisodeStream(manifest, spec, a.iter_num, base_size=a.base_size, seed=a.seed, cache_dir=a.episode_cache)
+
+
+def _episode_seeds(a, first: int, n: int) -> list:
+    """One generator seed per episode, by its index: the same draws at any
+    ``--eval_batch``, mesh or world."""
+    return [a.seed * 1_000_003 + first + j for j in range(n)]
+
+
+def _plan(a, n_shards: int):
+    """``(batches, shards, own)`` of the eval over ``n_shards`` shards: the
+    ``(first episode, episodes)`` of each global batch of ``--eval_batch``
+    times ``n_shards`` episodes, each batch's shards (slices of it; the last
+    batch may leave shards short or empty), and each shard's episodes over
+    all batches in order."""
+    global_batch = a.eval_batch * n_shards
+    batches = [(b, min(global_batch, a.iter_num - b)) for b in range(0, a.iter_num, global_batch)]
+    shards = [pmesh.episode_sharding(-(-n // a.eval_batch), n, a.eval_batch) for _, n in batches]
+    own = [[b + i for (b, _), sl in zip(batches, shards) if k < len(sl) for i in range(sl[k].start, sl[k].stop)]
+           for k in range(n_shards)]
+    return batches, shards, own
+
+
+class _RankShards:
+    """The ranks of a process group as the eval's shards, with
+    ``pmesh.ShardPool``'s ``map``: rank r runs shard r of each batch here
+    (``step``, :func:`_shard_step`), then every rank gathers every rank's
+    answer (``all_gather_object``, between lane batches: the lane batch
+    itself issues no collective)."""
+
+    def __init__(self, step, group):
+        self.step, self.group = step, group
+        self.rank, self.world = pdist.rank_world(group)
+
+    def map(self, messages) -> list:
+        mine = self.step(*messages[self.rank]) if self.rank < len(messages) else None
+        every = [None] * self.world
+        dist.all_gather_object(every, mine, group=self.group)
+        return every[: len(messages)]
 
 
 def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=None, logger=None,
-             mesh_devices=None, keep_scores: bool = False) -> EvalResult:
+             mesh_devices=None, keep_scores: bool = False, group=None) -> EvalResult:
     """The episode loop; prints each episode's accuracy (and logs it to
     ``logger``).  The episodes run in global batches of ``--eval_batch``
     times the mesh's width (``mesh_devices``; by default every visible card
@@ -246,45 +310,41 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=Non
     each device takes the next ``--eval_batch`` episodes (the last may be
     short) in a worker process of its own (``pmesh.ShardPool``), which loads
     them itself, and the answers are gathered in episode order.
+    ``group`` (a ``torch.distributed`` process group, ``parallel/
+    distributed.py``): the ranks are the shards, rank r the r-th of each
+    global batch of ``--eval_batch`` times the world, run in this process on
+    ``device``; every rank returns the whole eval (:class:`_RankShards`).
     ``keep_scores``: the result carries every episode's scores on the CPU."""
-    tcfg = ee.TransferCfg(fine_tune_epochs=a.fine_tune_epoch, inner_param_dtype=a.inner_param_dtype,
-                           inner_scan=a.inner_scan, bn_mode=a.bn_mode, freeze_backbone=a.freeze_backbone,
-                           ensemble_fuse=a.ensemble_fuse, fanout_group_pass=a.fanout_group_pass,
-                           inner_gather=a.inner_gather, inner_carry=a.inner_carry)
-    program_kw = dict(method=a.method, bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg,
+    program_kw = dict(method=a.method, bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=_transfer_cfg(a), aug_cfg=aug_cfg,
                       gen_examples=a.gen_examples, dcfg=dcfg, dampnet_eval=a.dampnet_eval)
-    if mesh_devices is None:
-        mesh_devices = None if device.type == "cuda" and device.index is None else [device]
-    mesh, global_batch = plan_eval_mesh(a.eval_batch, mesh_devices)
-    if a.episode_manifest:
-        stream = ReplayEpisodeStream.from_json(a.episode_manifest, spec, base_size=a.base_size,
-                                               root=a.episode_manifest_root)
-        a.iter_num = len(stream)
-        print(f"replaying {a.iter_num} recorded episodes from {a.episode_manifest}")
+    if group is not None:
+        rank, world = pdist.rank_world(group)
+        mesh = [device] * world
     else:
-        stream = EpisodeStream(manifest, spec, a.iter_num, base_size=a.base_size, seed=a.seed,
-                               cache_dir=a.episode_cache)
-    # (first episode, episodes) of each global batch, and each batch's shards (slices of it)
-    batches = [(b, min(global_batch, a.iter_num - b)) for b in range(0, a.iter_num, global_batch)]
-    shards = [pmesh.episode_sharding(-(-n // a.eval_batch), n, a.eval_batch) for _, n in batches]
+        if mesh_devices is None:
+            mesh_devices = None if device.type == "cuda" and device.index is None else [device]
+        mesh, _ = plan_eval_mesh(a.eval_batch, mesh_devices)
+    stream = _episode_stream(a, manifest, spec)
+    batches, shards, own = _plan(a, len(mesh))
     accs, scores, seconds, batch_seconds, shard_seconds, launches = [], [], [], [], [], {}
+    pool = None
     with contextlib.ExitStack() as stack:
-        if len(mesh) == 1:
+        if group is not None or len(mesh) == 1:
             program = ee.make_eval_program(**program_kw)
             models = pytree.tree_map(lambda t: t.to(mesh[0]) if isinstance(t, torch.Tensor) else t, models)
-            episodes = iter(stream)
+            if group is None:
+                episodes = iter(stream)
+            else:
+                pool = _RankShards(_shard_step(program, models, stream.iterate(own[rank]), device), group)
         else:
             blob = io.BytesIO()
             torch.save(models, blob)
             common = (program_kw, blob.getvalue(), torch.get_num_threads(),
                       (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32), stream)
-            own = [[b + i for (b, _), sl in zip(batches, shards) if k < len(sl) for i in range(sl[k].start, sl[k].stop)]
-                   for k in range(len(mesh))]
             pool = stack.enter_context(pmesh.ShardPool(mesh, _shard_worker, [common + (ix,) for ix in own]))
         for (done, n), slices in zip(batches, shards):
-            # one generator per episode, seeded by its index: the same draws at any --eval_batch and mesh
-            seeds = [a.seed * 1_000_003 + done + j for j in range(n)]
-            if len(mesh) == 1:
+            seeds = _episode_seeds(a, done, n)
+            if pool is None:
                 images = np.stack([next(episodes)[0] for _ in range(n)])
                 t0 = time.perf_counter()
                 batch_scores, batch_accs = _run_shard(program, models, images, _generators(seeds), mesh[0])

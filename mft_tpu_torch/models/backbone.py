@@ -250,12 +250,14 @@ class BNCtx(NamedTuple):
     #: >1: batch statistics per contiguous group of N/groups rows (ops/norm.py);
     #: ``sample_mask`` is then one group's ``[N/groups]``, shared by the groups
     groups: int = 1
+    #: a process group: batch statistics over every rank's rows (ops/norm.py)
+    group: object = None
 
 
 def _bn(x, p, s, ctx: BNCtx):
     return batch_norm(
         x, p, s, use_batch_stats=ctx.use_batch_stats, update_stats=ctx.update_stats,
-        momentum=ctx.momentum, sample_mask=ctx.sample_mask, groups=ctx.groups,
+        momentum=ctx.momentum, sample_mask=ctx.sample_mask, groups=ctx.groups, group=ctx.group,
     )
 
 
@@ -349,7 +351,7 @@ def _noise_of(cfg: ResNetCfg, train: bool, fwt_noise):
 def apply_backbone(params, stats, x: torch.Tensor, *, cfg: ResNetCfg, train: bool,
                    update_stats: bool = False, momentum: float = 0.1,
                    sample_mask: Optional[torch.Tensor] = None, bn_groups: int = 1, fwt_noise=None,
-                   start_stage: int = 0):
+                   start_stage: int = 0, bn_group=None):
     """``x [N, C, H, W]`` -> ``(features, new_stats)``: ``[N, feat_dim]``
     with ``cfg.flatten``, else the last stage's map.
 
@@ -360,9 +362,12 @@ def apply_backbone(params, stats, x: torch.Tensor, *, cfg: ResNetCfg, train: boo
     ``fwt_noise`` (an FWT backbone in training only): one dict of draws
     per block (:func:`draw_fwt_noise`; None for a block runs it without
     noise).  ``start_stage > 0`` skips the stem and the
-    stages before it: ``x`` is then that stage's input map."""
+    stages before it: ``x`` is then that stage's input map.  ``bn_group``
+    (a process group, ``train=True``): every BN takes its batch statistics
+    over the rows of every rank of the group (the data-parallel baseline
+    step)."""
     cd = _cd(cfg)
-    ctx = BNCtx(train, train and update_stats, momentum, sample_mask, bn_groups)
+    ctx = BNCtx(train, train and update_stats, momentum, sample_mask, bn_groups, bn_group)
     noise = _noise_of(cfg, train, fwt_noise)
     new_stats = {"stages": [list(s) for s in stats["stages"]]}
     if cfg.stem:

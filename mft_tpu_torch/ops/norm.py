@@ -8,7 +8,9 @@ is how the inner loop's ragged last minibatch keeps static shapes.
 ``groups`` takes batch statistics per contiguous group of leading rows: the
 eval's episode lanes (and replica groups) share one call and keep their own
 statistics; a ``sample_mask`` then weighs each group's rows alike (the
-faithful eval's lanes share one inner schedule).
+faithful eval's lanes share one inner schedule).  ``group`` (a process
+group) takes the batch statistics over every rank's rows, as one batch: the
+data-parallel baseline step's normalization over the whole minibatch.
 """
 
 from __future__ import annotations
@@ -16,8 +18,45 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 EPS = 1e-5  # torch default
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks of a process group whose backward sums the
+    incoming gradients over the ranks: each rank then holds the gradient of
+    the global loss with respect to its own rows (BN over a process group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _synced_moments(x: torch.Tensor, reduce_dims, group):
+    """The mean and biased variance over ``reduce_dims`` of the rows of
+    every rank of ``group``, in :func:`_masked_moments`' two passes: the
+    summed sums (and row counts, in the same collective) give the mean,
+    then the summed centred squares the variance.  The sums are
+    differentiable across the ranks (:class:`_AllReduceSum`)."""
+    count = 1.0
+    for d in reduce_dims:
+        count *= x.shape[d]
+    sums = x.sum(dim=reduce_dims, keepdim=True)
+    total = _AllReduceSum.apply(torch.cat([sums.reshape(-1), sums.new_tensor([count])]), group)
+    count = total[-1].detach()
+    mean = total[:-1].reshape(sums.shape) / count
+    var = _AllReduceSum.apply((x - mean).square().sum(dim=reduce_dims, keepdim=True), group) / count
+    return mean, var, count
 
 
 def _masked_moments(x: torch.Tensor, reduce_dims, mask: Optional[torch.Tensor], row_dim: int = 0):
@@ -55,6 +94,7 @@ def batch_norm(
     eps: float = EPS,
     channel_dim: int = 1,
     groups: int = 1,
+    group=None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Normalize over every dim but ``channel_dim`` (1 for NCHW and
     ``[N, C]``; -1 for the GNN's channels-last edge tensor).
@@ -65,6 +105,12 @@ def batch_norm(
     update, as there.  ``sample_mask [N / groups]`` weighs every group's
     rows alike, each group counting its own unmasked rows: the groups'
     separate masked calls (JAX refuses a mask here and vmaps those calls).
+
+    ``group`` (a process group; batch statistics only, without ``groups``
+    or a mask):
+    the moments over every rank's rows, the running update with the global
+    count, so every rank's output and new stats are those of one call on
+    the ranks' rows together.
 
     Returns ``(y, new_stats)``; ``new_stats`` is ``stats`` unless
     ``use_batch_stats and update_stats``, where the running update uses the
@@ -77,6 +123,8 @@ def batch_norm(
     bshape = [1] * x.ndim
     bshape[cd] = x.shape[cd]
     shape = x.shape
+    if group is not None and (groups > 1 or not use_batch_stats or sample_mask is not None):
+        raise ValueError("BN over a process group takes batch statistics, without groups or a mask")
     if groups > 1:
         if not use_batch_stats or update_stats:
             raise ValueError("grouped BN takes batch statistics only, with no running-stat update")
@@ -88,7 +136,10 @@ def batch_norm(
         bshape = [1] + bshape
         new_stats = stats
     elif use_batch_stats:
-        mean, var, count = _masked_moments(x, reduce_dims, sample_mask)
+        if group is None:
+            mean, var, count = _masked_moments(x, reduce_dims, sample_mask)
+        else:
+            mean, var, count = _synced_moments(x, reduce_dims, group)
         new_stats = stats
         if update_stats and stats is not None:
             # running statistics are never differentiated: built without a

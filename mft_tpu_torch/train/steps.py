@@ -17,6 +17,19 @@ reference's schedule), averages the losses and the running-stat updates over
 E as the JAX step does (steps.py:112-116), loops over E rather than
 vectorizing, and returns ``(params, stats, opt_state, metrics)``.  Trees are
 functional: the step returns new ones and leaves its inputs as they were.
+
+Data parallelism (``group``, a process group of ``parallel/distributed.py``):
+each rank passes its own contiguous slice of the global batch (``E`` is then
+the slice's size times the world), weighs its episodes' mean by its share of
+the batch, and the gradients, the loss and the running-stat updates are
+summed over the ranks in one flat bucket before the update, so every rank
+applies the global batch's step.  Random draws do not depend on the layout:
+every rank draws the whole batch's ``E`` draws from the step's generator in
+episode order (the order one process draws them in) and keeps its slice's;
+explicit draws are likewise the whole batch's.  The baseline step, which
+normalizes over its whole minibatch, takes its BN statistics over every
+rank's rows; the episodic steps normalize per episode and sync none.
+``group=None`` is the one-process step.
 """
 
 from __future__ import annotations
@@ -32,9 +45,12 @@ from mft_tpu_torch.methods.baseline import ce_loss, classifier_logits, top1_accu
 from mft_tpu_torch.methods.dampnet import dampnet_loss, dampnet_scores
 from mft_tpu_torch.methods.gnnnet import gnn_scores, gnnnet_loss
 from mft_tpu_torch.methods.protonet import proto_scores, protonet_loss
+from mft_tpu_torch.methods import dampnet as dn
 from mft_tpu_torch.models import backbone as bb
+from mft_tpu_torch.parallel import distributed as pdist
 from mft_tpu_torch.train import optimizers as opt
-from mft_tpu_torch.train.inner_loop import InnerLoopCfg, fo_maml_reattach, inner_fit, inner_fit_carry
+from mft_tpu_torch.train.inner_loop import (InnerLoopCfg, fo_maml_reattach, inner_fit, inner_fit_carry,
+                                            minibatch_schedule)
 
 
 #: profiler range around each episode's inner loop in the meta fine-tune
@@ -68,6 +84,30 @@ def _tree_mean(trees):
     return pytree.tree_map(lambda *xs: torch.stack(xs).mean(dim=0), *trees)
 
 
+def _share(world: int) -> float:
+    """A rank's share of the global batch (equal slices)."""
+    return 1.0 / world
+
+
+def _rank_mean(values: torch.Tensor, world: int) -> torch.Tensor:
+    """The mean of a rank's values weighted by its share of the batch, so
+    that the sum over the ranks is the global mean (at world 1 a product
+    with 1.0, which is exact: the values' own mean, bit for bit)."""
+    return (values if values.dim() == 0 else values.mean()) * _share(world)
+
+
+def _rank_tree_mean(trees, world: int):
+    return pytree.tree_map(lambda t: t * _share(world), _tree_mean(trees))
+
+
+def _layout(episodes, group):
+    """``(E, the rank's slice of it, world)`` of a step over ``episodes``
+    (the rank's own)."""
+    rank, world = pdist.rank_world(group)
+    n = len(episodes) * world
+    return n, pdist.episode_slice(rank, world, n), world
+
+
 def _value_and_grad(loss_fn, params):
     """``loss_fn(params) -> (loss, aux)`` -> ``(loss, aux, grads)``; a
     parameter the loss does not reach gets a zero gradient, as under
@@ -93,15 +133,27 @@ def _apply(tx, params, grads, opt_state):
 # --------------------------------------------------------------------------
 
 
-def baseline_loss_fn(params, stats, x, y, *, bcfg):
-    """x ``[N, 3, H, W]``, y ``[N]`` -> ``(loss, (new_stats, top1))``."""
-    feats, new_stats = bb.apply_backbone(params["feature"], stats, x, cfg=bcfg, train=True, update_stats=True)
+def baseline_loss_fn(params, stats, x, y, *, bcfg, group=None):
+    """x ``[N, 3, H, W]``, y ``[N]`` -> ``(loss, (new_stats, top1))``;
+    ``group``: this rank's rows, BN over every rank's."""
+    feats, new_stats = bb.apply_backbone(params["feature"], stats, x, cfg=bcfg, train=True, update_stats=True,
+                                         bn_group=group)
     logits = classifier_logits(params["classifier"], feats)
     return ce_loss(logits, y), (new_stats, top1_accuracy(logits, y))
 
 
-def baseline_train_step(params, stats, opt_state, x, y, *, bcfg, tx):
-    loss, (new_stats, acc), grads = _value_and_grad(lambda p: baseline_loss_fn(p, stats, x, y, bcfg=bcfg), params)
+def baseline_train_step(params, stats, opt_state, x, y, *, bcfg, tx, group=None):
+    """``group``: ``x``, ``y`` are this rank's equal slice of the minibatch;
+    the BN statistics (hence the running stats) are the whole minibatch's,
+    the loss, accuracy and gradients its mean."""
+    _, world = pdist.rank_world(group)
+
+    def loss_fn(p):
+        loss, (new_stats, acc) = baseline_loss_fn(p, stats, x, y, bcfg=bcfg, group=group)
+        return _rank_mean(loss, world), (new_stats, _rank_mean(acc.detach(), world))
+
+    loss, (new_stats, acc), grads = _value_and_grad(loss_fn, params)
+    grads, loss, acc = pdist.all_reduce_tree((grads, loss, acc), group)
     params, opt_state = _apply(tx, params, grads, opt_state)
     return params, new_stats, opt_state, {"loss": loss, "top1": acc.detach()}
 
@@ -131,29 +183,32 @@ def _episode_loss(params, stats, episode, *, method, bcfg, gcfg, spec: EpisodeSp
 
 
 def episodic_train_step(params, stats, opt_state, episodes, *, method, bcfg, gcfg, spec: EpisodeSpec, tx,
-                        fwt_noise=None):
+                        fwt_noise=None, group=None):
     """episodes ``[E, n_way, s+q, 3, H, W]``; loss and stat updates averaged over E.
 
     ``fwt_noise`` (ResNet10_FW): a ``torch.Generator`` that draws each
     episode's noise for every block (``bb.draw_fwt_noise``, episode by
     episode), or the ``E`` episodes' draws; the JAX step splits its key per
     episode and per block (steps.py:108, backbone.py:332).  This is the one
-    step that draws FWT noise, as in JAX."""
+    step that draws FWT noise, as in JAX.  ``group``: the module's data
+    parallelism (``episodes`` this rank's; the draws the whole batch's)."""
+    n, mine, world = _layout(episodes, group)
     noise = [None] * len(episodes)
     if bcfg.block == "fwt" and fwt_noise is not None:
         if isinstance(fwt_noise, torch.Generator):
-            noise = [bb.draw_fwt_noise(fwt_noise, bcfg, device=episodes.device) for _ in range(len(episodes))]
-        elif len(fwt_noise) != len(episodes):
-            raise ValueError(f"fwt_noise holds {len(fwt_noise)} episodes' draws for {len(episodes)} episodes")
+            noise = [bb.draw_fwt_noise(fwt_noise, bcfg, device=episodes.device) for _ in range(n)][mine]
+        elif len(fwt_noise) != n:
+            raise ValueError(f"fwt_noise holds {len(fwt_noise)} episodes' draws for {n} episodes")
         else:
-            noise = list(fwt_noise)
+            noise = list(fwt_noise)[mine]
 
     def batch_loss(p):
         losses, new_stats = zip(*(_episode_loss(p, stats, ep, method=method, bcfg=bcfg, gcfg=gcfg, spec=spec,
                                                 fwt_noise=nz) for ep, nz in zip(episodes, noise)))
-        return torch.stack(losses).mean(), _tree_mean(new_stats)
+        return _rank_mean(torch.stack(losses), world), _rank_tree_mean(new_stats, world)
 
     loss, new_stats, grads = _value_and_grad(batch_loss, params)
+    grads, loss, new_stats = pdist.all_reduce_tree((grads, loss, new_stats), group)
     params, opt_state = _apply(tx, params, grads, opt_state)
     return params, new_stats, opt_state, {"loss": loss}
 
@@ -164,33 +219,50 @@ def episodic_train_step(params, stats, opt_state, episodes, *, method, bcfg, gcf
 
 
 def dampnet_train_step(params, stats, opt_state, dstate, episodes, gen, *, mode, bcfg, dcfg, spec: EpisodeSpec, tx,
-                       corrupt_x=None):
+                       corrupt_x=None, group=None):
     """One DampNet step over an episode batch ``[E, n_way, s+q, 3, H, W]``:
     each episode embedded by the backbone in train mode (running stats
     updated, averaged over E), scored by ``dampnet_scores`` in ``mode``
     ('plain' / 'corrupt' / 'recover'), CE on the queries, Adam over every
-    parameter.  ``gen`` draws each corrupt episode's corruption unless
-    ``corrupt_x [E, n_way*(s+q), feat]`` gives it.  The metrics hold the
-    episodes' clean support features ``support_bank [E, n_way*n_support,
-    feat]`` (detached) for the driver's prototype refresh (:456-462)."""
+    parameter.  ``gen`` draws each corrupt episode's corruption
+    (``dn.draw_corruption``, episode by episode) unless ``corrupt_x [E,
+    n_way*(s+q), feat]`` gives it.  The metrics hold the episodes' clean
+    support features ``support_bank [E, n_way*n_support, feat]`` (detached,
+    every rank's in global order under ``group``) for the driver's
+    prototype refresh (:456-462)."""
+    n, mine, world = _layout(episodes, group)
+    draws = [None] * len(episodes)
+    if mode == "corrupt" and corrupt_x is None:
+        if gen is None:
+            raise ValueError("mode='corrupt' needs a generator or corrupt_x")
+        proto = dcfg.variant == "prototype"
+        draws = [dn.draw_corruption(gen, dcfg.feat_dim, prototype=proto) for _ in range(n)][mine]
+    elif corrupt_x is not None:
+        if len(corrupt_x) != n:
+            raise ValueError(f"corrupt_x holds {len(corrupt_x)} episodes for {n} episodes")
+        corrupt_x = corrupt_x[mine]
 
     def one(p, i, ep):
         feats, new_stats = bb.apply_backbone(p["feature"], stats, flatten_episode(ep), cfg=bcfg, train=True,
                                              update_stats=True)
         z = feats.reshape(spec.n_way, spec.n_per_class, -1)
         head = {k: v for k, v in p.items() if k != "feature"}
-        scores = dampnet_scores(head, dstate, z, dcfg, spec.n_query, mode=mode, gen=gen,
-                                corrupt_x=None if corrupt_x is None else corrupt_x[i])
+        cx = None if corrupt_x is None else corrupt_x[i]
+        if draws[i] is not None:
+            cx = dn.apply_corruption(z.reshape(spec.n_way * spec.n_per_class, -1), draws[i],
+                                     scale_bias=dcfg.variant != "prototype")
+        scores = dampnet_scores(head, dstate, z, dcfg, spec.n_query, mode=mode, corrupt_x=cx)
         bank = z[:, : spec.n_support].reshape(spec.support_size, -1).detach()
         return dampnet_loss(scores, spec.n_way, spec.n_query), new_stats, bank
 
     def batch_loss(p):
         losses, new_stats, banks = zip(*(one(p, i, ep) for i, ep in enumerate(episodes)))
-        return torch.stack(losses).mean(), (_tree_mean(new_stats), torch.stack(banks))
+        return _rank_mean(torch.stack(losses), world), (_rank_tree_mean(new_stats, world), torch.stack(banks))
 
     loss, (new_stats, banks), grads = _value_and_grad(batch_loss, params)
+    grads, loss, new_stats = pdist.all_reduce_tree((grads, loss, new_stats), group)
     params, opt_state = _apply(tx, params, grads, opt_state)
-    return params, new_stats, opt_state, {"loss": loss, "support_bank": banks}
+    return params, new_stats, opt_state, {"loss": loss, "support_bank": pdist.all_gather_episodes(banks, group)}
 
 
 # --------------------------------------------------------------------------
@@ -255,18 +327,33 @@ def _meta_finetune_episode_loss(params, stats, episode, gen, *, method, bcfg, gc
 
 
 def meta_finetune_train_step(params, stats, opt_state, episodes, gen, *, method, bcfg, gcfg, spec: EpisodeSpec,
-                             mcfg: MetaFinetuneCfg, tx, schedule=None):
-    """The ``--fine_tune`` step over an episode batch ``[E, ...]``.
-    ``schedule``: an explicit inner ``(idx, w)`` shared by every episode of
-    the batch (the replay instrument of the trajectory goldens)."""
+                             mcfg: MetaFinetuneCfg, tx, schedule=None, group=None):
+    """The ``--fine_tune`` step over an episode batch ``[E, ...]``.  ``gen``
+    draws each episode's inner ``(idx, w)`` in turn unless ``schedule``
+    gives it: one ``(idx, w)`` shared by every episode of the batch (the
+    replay instrument of the trajectory goldens), or a list of the ``E``
+    episodes' own."""
+    n, mine, world = _layout(episodes, group)
+    if isinstance(schedule, list):
+        if len(schedule) != n:
+            raise ValueError(f"schedule holds {len(schedule)} episodes' schedules for {n} episodes")
+        schedules = schedule[mine]
+    elif schedule is not None:
+        schedules = [schedule] * len(episodes)
+    elif gen is not None and mcfg.epochs > 0:
+        icfg = InnerLoopCfg(epochs=mcfg.epochs, batch_size=mcfg.batch_size, bank_size=spec.support_size)
+        schedules = [minibatch_schedule(gen, icfg, episodes.device) for _ in range(n)][mine]
+    else:
+        schedules = [None] * len(episodes)
 
     def batch_loss(p):
         losses, new_stats = zip(*(
             _meta_finetune_episode_loss(p, stats, ep, gen, method=method, bcfg=bcfg, gcfg=gcfg, spec=spec, mcfg=mcfg,
-                                        schedule=schedule)
-            for ep in episodes))
-        return torch.stack(losses).mean(), _tree_mean(new_stats)
+                                        schedule=sched)
+            for ep, sched in zip(episodes, schedules)))
+        return _rank_mean(torch.stack(losses), world), _rank_tree_mean(new_stats, world)
 
     loss, new_stats, grads = _value_and_grad(batch_loss, params)
+    grads, loss, new_stats = pdist.all_reduce_tree((grads, loss, new_stats), group)
     params, opt_state = _apply(tx, params, grads, opt_state)
     return params, new_stats, opt_state, {"loss": loss}
