@@ -63,7 +63,7 @@ from mft_tpu_torch.parallel import distributed as pdist
 from mft_tpu_torch.parallel import mesh as pmesh
 from mft_tpu_torch.train import eval_engine as ee
 from mft_tpu_torch.utils import checkpoint as ckpt
-from mft_tpu_torch.utils.metrics import MetricLogger, profile_trace
+from mft_tpu_torch.utils.metrics import MetricLogger, eval_batch, profile_trace, span
 
 
 class EvalResult(NamedTuple):
@@ -72,8 +72,11 @@ class EvalResult(NamedTuple):
     accs: list
     #: seconds of each episode: its batch's seconds over the batch's lanes
     seconds: list
-    #: seconds of each batch (host clock around the synchronized batch)
+    #: seconds of each batch: its ``eval:run`` span, from the batch's start on the device (after its episodes
+    #: are stacked on the host) to its synchronized scores
     batch_seconds: list
+    #: the episodes after the first (warm-up) batch over the seconds from that batch's end to the last batch's
+    #: end (their ``eval:batch`` spans), so the time between batches counts; the one batch's rate if it is alone
     episodes_per_sec: float
     #: every episode's scores on the CPU, in episode order (``keep_scores``), else None
     scores: Optional[list] = None
@@ -200,9 +203,28 @@ def plan_eval_mesh(eval_batch_per_device: int, devices=None):
 
 
 def _run_shard(program, models, images, gens, device):
-    """One device's lane batch: its episodes to the device, the program."""
-    base = torch.from_numpy(images).to(device).permute(0, 1, 2, 5, 3, 4)  # NHWC -> NCHW
+    """One device's lane batch: its episodes to the device (the span
+    ``input:to_device``), the program."""
+    with span("input:to_device"):
+        base = torch.from_numpy(images).to(device).permute(0, 1, 2, 5, 3, 4)  # NHWC -> NCHW
     return program(models, base, gens)
+
+
+def _next_images(episodes, n: int) -> np.ndarray:
+    """The next ``n`` episodes' images of ``episodes`` stacked on the host
+    (the span ``input:stack``; the stream's own span is the wait for each)."""
+    loaded = [next(episodes)[0] for _ in range(n)]
+    with span("input:stack"):
+        return np.stack(loaded)
+
+
+def _episodes_per_sec(marks: list) -> float:
+    """The eval's rate from its batches' ``eval:batch`` records: the
+    episodes after the first batch over the seconds from its end to the
+    last batch's end; the first batch's own rate when it is alone."""
+    if len(marks) == 1:
+        return marks[0].episodes / marks[0].seconds
+    return sum(m.episodes for m in marks[1:]) / ((marks[-1].end_ns - marks[0].end_ns) / 1e9)
 
 
 def _generators(seeds):
@@ -218,7 +240,7 @@ def _shard_step(program, models, episodes, device):
     from mft_tpu_torch import kernels
 
     def step(seeds):
-        images = np.stack([next(episodes)[0] for _ in seeds])
+        images = _next_images(episodes, len(seeds))
         before = kernels.launch_counts()
         t0 = time.perf_counter()
         scores, accs = _run_shard(program, models, images, _generators(seeds), device)
@@ -314,7 +336,13 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=Non
     distributed.py``): the ranks are the shards, rank r the r-th of each
     global batch of ``--eval_batch`` times the world, run in this process on
     ``device``; every rank returns the whole eval (:class:`_RankShards`).
-    ``keep_scores``: the result carries every episode's scores on the CPU."""
+    ``keep_scores``: the result carries every episode's scores on the CPU.
+    Each global batch is a lane batch of the span recorder
+    (``utils/metrics.eval_batch``, ``eval:batch``), from its first episode's
+    wait to the end of its report: the stream's ``input:wait`` for each
+    episode, ``input:stack``, ``eval:run`` (the batch's seconds, with
+    ``input:to_device`` and the eval engine's phases inside) and
+    ``eval:report``."""
     program_kw = dict(method=a.method, bcfg=bcfg, gcfg=gcfg, spec=spec, tcfg=_transfer_cfg(a), aug_cfg=aug_cfg,
                       gen_examples=a.gen_examples, dcfg=dcfg, dampnet_eval=a.dampnet_eval)
     if group is not None:
@@ -326,7 +354,7 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=Non
         mesh, _ = plan_eval_mesh(a.eval_batch, mesh_devices)
     stream = _episode_stream(a, manifest, spec)
     batches, shards, own = _plan(a, len(mesh))
-    accs, scores, seconds, batch_seconds, shard_seconds, launches = [], [], [], [], [], {}
+    accs, scores, seconds, batch_seconds, shard_seconds, launches, marks = [], [], [], [], [], {}, []
     pool = None
     with contextlib.ExitStack() as stack:
         if group is not None or len(mesh) == 1:
@@ -342,35 +370,38 @@ def evaluate(a, models, manifest, *, aug_cfg, bcfg, gcfg, spec, device, dcfg=Non
             common = (program_kw, blob.getvalue(), torch.get_num_threads(),
                       (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32), stream)
             pool = stack.enter_context(pmesh.ShardPool(mesh, _shard_worker, [common + (ix,) for ix in own]))
-        for (done, n), slices in zip(batches, shards):
-            seeds = _episode_seeds(a, done, n)
-            if pool is None:
-                images = np.stack([next(episodes)[0] for _ in range(n)])
-                t0 = time.perf_counter()
-                batch_scores, batch_accs = _run_shard(program, models, images, _generators(seeds), mesh[0])
-                if mesh[0].type == "cuda":
-                    torch.cuda.synchronize(mesh[0])
-                if keep_scores:
-                    scores += list(batch_scores.float().cpu())
-            else:
-                t0 = time.perf_counter()
-                answers = pool.map([(seeds[s],) for s in slices])
-                batch_accs = [acc for _, shard_accs, _, _ in answers for acc in shard_accs]
-                for shard_scores, _, counts, _ in answers:
-                    if keep_scores:
-                        scores += list(shard_scores)
-                    for name, c in counts.items():
-                        launches[name] = launches.get(name, 0) + c
-                shard_seconds.append([t for *_, t in answers])
-            batch_seconds.append(time.perf_counter() - t0)
-            seconds += [batch_seconds[-1] / n] * n
-            for j, acc in enumerate(batch_accs):
-                print(acc)  # per-episode accuracy (reference finetune.py:631)
-                if logger:
-                    logger._write({"kind": "episode", "index": done + j, "acc": acc})
-            accs += batch_accs
+        for k, ((done, n), slices) in enumerate(zip(batches, shards)):
+            with eval_batch(k, n) as mark:
+                seeds = _episode_seeds(a, done, n)
+                if pool is None:
+                    images = _next_images(episodes, n)
+                    with span("eval:run") as ran:
+                        batch_scores, batch_accs = _run_shard(program, models, images, _generators(seeds), mesh[0])
+                        if mesh[0].type == "cuda":
+                            torch.cuda.synchronize(mesh[0])
+                        if keep_scores:
+                            scores += list(batch_scores.float().cpu())
+                else:
+                    with span("eval:run") as ran:
+                        answers = pool.map([(seeds[s],) for s in slices])
+                        batch_accs = [acc for _, shard_accs, _, _ in answers for acc in shard_accs]
+                        for shard_scores, _, counts, _ in answers:
+                            if keep_scores:
+                                scores += list(shard_scores)
+                            for name, c in counts.items():
+                                launches[name] = launches.get(name, 0) + c
+                        shard_seconds.append([t for *_, t in answers])
+                batch_seconds.append(ran.seconds)
+                seconds += [batch_seconds[-1] / n] * n
+                with span("eval:report"):
+                    for j, acc in enumerate(batch_accs):
+                        print(acc)  # per-episode accuracy (reference finetune.py:631)
+                        if logger:
+                            logger._write({"kind": "episode", "index": done + j, "acc": acc})
+                accs += batch_accs
+            marks.append(mark)
     mean, ci = ee.mean_ci95(np.asarray(accs))
-    return EvalResult(mean, ci, accs, seconds, batch_seconds, a.iter_num / sum(batch_seconds),
+    return EvalResult(mean, ci, accs, seconds, batch_seconds, _episodes_per_sec(marks),
                       scores if keep_scores else None, launches, shard_seconds)
 
 
@@ -417,7 +448,7 @@ def main(argv=None, *, mesh_devices=None, keep_scores: bool = False) -> EvalResu
                        keep_scores=keep_scores)
     print(a.test_dataset)
     logger.log_eval(a.iter_num, res.mean, res.ci95, eps_per_sec=res.episodes_per_sec)  # the "N Test Acc" line
-    print(f"episodes/sec = {res.episodes_per_sec:.3f}")
+    print(f"episodes/sec = {res.episodes_per_sec:.3f} (after the first batch, the time between batches included)")
     print(f"seconds/episode = {np.mean(res.seconds):.3f}")
     return res
 

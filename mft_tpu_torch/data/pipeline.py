@@ -26,6 +26,7 @@ from mft_tpu_torch.core.episode import EpisodeSpec
 from mft_tpu_torch.data import native_decode
 from mft_tpu_torch.data.manifests import Manifest
 from mft_tpu_torch.data.sampler import EpisodicSampler
+from mft_tpu_torch.utils.metrics import span
 
 
 #: decode-pool width: 2x the cores, at most 16
@@ -127,7 +128,8 @@ class EpisodeStream:
 
     def iterate(self, indices):
         """The episodes ``indices`` in that order (each a function of the
-        seed and its index alone; the eval's mesh workers load their own)."""
+        seed and its index alone; the eval's mesh workers load their own).
+        The consumer's wait for each is the span ``input:wait``."""
         indices = list(indices)
         n = len(indices)
         with cf.ThreadPoolExecutor(WORKERS) as decode, cf.ThreadPoolExecutor(PREFETCH) as ahead:
@@ -135,7 +137,9 @@ class EpisodeStream:
             for k in range(n):
                 if k + PREFETCH < n:
                     futures[k + PREFETCH] = ahead.submit(self._load, indices[k + PREFETCH], decode)
-                yield futures.pop(k).result()
+                with span("input:wait"):  # the consumer's wait for the episode
+                    episode = futures.pop(k).result()
+                yield episode
 
 
 class ReplayEpisodeStream:
@@ -171,11 +175,13 @@ class ReplayEpisodeStream:
         return self.iterate(range(len(self.episodes)))
 
     def iterate(self, indices):
-        """The recorded episodes ``indices`` in that order."""
+        """The recorded episodes ``indices`` in that order; each one's
+        decode, which the consumer waits for, is the span ``input:wait``."""
         s = self.spec
         with cf.ThreadPoolExecutor(WORKERS) as pool:
             for i in indices:
-                images = _decode_many([p for way in self.episodes[i] for p in way], self.base_size, pool)
+                with span("input:wait"):
+                    images = _decode_many([p for way in self.episodes[i] for p in way], self.base_size, pool)
                 yield images.reshape(s.n_way, s.n_per_class, self.base_size, self.base_size, 3), None
 
 

@@ -48,6 +48,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mft_tpu_torch.utils import metrics
+
 _BN_EPS = 1e-5  # torch default (ops/norm.py)
 _ADAM_EPS = 1e-8
 
@@ -506,7 +508,9 @@ def fused_inner_scan_lanes(p0, fmap_banks, bank_y, idx, w, *, geom: BlockGeom, l
     minibatch schedules; ``w [T, B]`` row weights (the same for every lane:
     the padding of ``minibatch_schedule`` depends only on the position).
     Returns the adapted parameters (``[L, ...]``, same dtype); ``p0`` is
-    not modified."""
+    not modified.  Adds the call's ``L * T`` steps to the lane batch's
+    ``adapt.lane_steps`` counter (``utils/metrics.count``)."""
+    metrics.count("adapt.lane_steps", idx.shape[0] * idx.shape[1])
     if fmap_banks.device.type == "cpu":
         outs = [fused_inner_scan_reference({k: v[l] for k, v in p0.items()}, fmap_banks[l], bank_y, idx[l], w,
                                            geom=geom, lr=lr) for l in range(idx.shape[0])]

@@ -44,11 +44,13 @@ one-lane order, so a lane's answer does not depend on ``E`` or its slot.
 The one-episode members (``gnn_member_scores`` ...) are the lane members on
 a batch of one.
 
-Each phase of a member runs inside a ``torch.profiler.record_function``
-range named in :data:`PHASES` (``<phase>:<member>``), so a profile of one
-episode splits its host and device time by phase (chip_smoke.py reads
-them); without a profiler each range is one cheap host call, eight or nine
-per episode.
+Each phase of a member runs inside a span (``utils/metrics.span``: a
+``torch.profiler.record_function`` range, also kept with its host times in
+the lane batch's record) named in :data:`PHASES` (``<phase>:<member>``), so
+a profile of one episode splits its host and device time by phase
+(chip_smoke.py reads them), and without a profiler the eval's batch records
+hold each phase's host time; each span is a few cheap host calls, eight or
+nine a lane batch.
 """
 
 from __future__ import annotations
@@ -58,7 +60,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from mft_tpu_torch.core.episode import EpisodeSpec, query_labels, support_labels
@@ -72,6 +73,7 @@ from mft_tpu_torch.ops.augment import augment_lanes, center_batch, make_eval_rep
 from mft_tpu_torch.train import optimizers as opt
 from mft_tpu_torch.train.inner_loop import (InnerLoopCfg, inner_fit, inner_fit_epochwise, inner_fit_pair,
                                             lane_schedule, stack_schedules)
+from mft_tpu_torch.utils.metrics import span
 
 
 #: profiler range names of one member's phases, in run order
@@ -430,19 +432,19 @@ def _finetune_features(backbone_params, backbone_stats, episodes, supports, gens
     Returns ``[E, n_way, s+q, feat]``.  ``supports``: the raw supports
     (episode mode) or the lanes' replica banks (minibatch mode);
     ``member`` names the profiler ranges."""
-    with record_function(f"bank_fmap:{member}"):
+    with span(f"bank_fmap:{member}"):
         fmap, bank_x, n_rep = _member_bank(backbone_params, backbone_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                            aug_cfg=aug_cfg, gen_examples=gen_examples)
     bank_y = bank_labels(spec, n_rep, supports.device)
-    with record_function(f"adapt:{member}"):
+    with span(f"adapt:{member}"):
         block, _ = _adapt_block(backbone_params, backbone_stats, bank_y, gens, bcfg=bcfg, tcfg=tcfg,
                                 epochs=tcfg.fine_tune_epochs, fmap_bank=fmap, bank_x=bank_x, schedule=inner_schedule)
-    with record_function(f"embed:{member}"):
+    with span(f"embed:{member}"):
         return _embed_episodes(backbone_params, backbone_stats, episodes, bcfg=bcfg, spec=spec, block=block)
 
 
 def _frozen_features(backbone_params, backbone_stats, episodes, *, bcfg, spec, member: str, train: bool):
-    with record_function(f"embed:{member}"):
+    with span(f"embed:{member}"):
         return _embed_episodes(backbone_params, backbone_stats, episodes, bcfg=bcfg, spec=spec, train=train)
 
 
@@ -459,7 +461,7 @@ def gnn_member_lanes(backbone_params, backbone_stats, head, episodes, supports, 
         feats = _finetune_features(backbone_params, backbone_stats, episodes, supports, gens, bcfg=bcfg, spec=spec,
                                    tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples,
                                    inner_schedule=inner_schedule)
-    with torch.no_grad(), record_function("score:gnn"):
+    with torch.no_grad(), span("score:gnn"):
         return torch.softmax(gnn_scores(head, feats, gcfg, spec.n_query), dim=-1)
 
 
@@ -476,7 +478,7 @@ def proto_member_lanes(backbone_params, backbone_stats, episodes, supports, gens
         feats = _finetune_features(backbone_params, backbone_stats, episodes, supports, gens, bcfg=bcfg, spec=spec,
                                    tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples,
                                    inner_schedule=inner_schedule, member="protonet")
-    with torch.no_grad(), record_function("score:protonet"):
+    with torch.no_grad(), span("score:protonet"):
         ns = spec.n_support
         return torch.softmax(proto_scores(feats[:, :, :ns], feats[:, :, ns:], spec), dim=-1)
 
@@ -488,7 +490,7 @@ def _draw_heads(gens, feat_dim: int, n_way: int, device, dtype=torch.float32):
 
 
 def _linear_scores(head, feats, spec: EpisodeSpec):
-    with torch.no_grad(), record_function("score:linear"):
+    with torch.no_grad(), span("score:linear"):
         q_feats = feats[:, :, spec.n_support :].reshape(feats.shape[0], spec.query_size, -1)
         return torch.softmax(classifier_logits(head, q_feats), dim=-1)
 
@@ -503,15 +505,15 @@ def linear_member_lanes(backbone_params, backbone_stats, episodes, supports, gen
     dev = supports.device
     if head0 is None:
         head0 = _draw_heads(gens, bcfg.feat_dim, spec.n_way, dev)
-    with record_function("bank_fmap:linear"):
+    with span("bank_fmap:linear"):
         fmap, bank_x, n_rep = _member_bank(backbone_params, backbone_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                            aug_cfg=aug_cfg, gen_examples=gen_examples, clean_only=True)
     bank_y = bank_labels(spec, n_rep, dev)
-    with record_function("adapt:linear"):
+    with span("adapt:linear"):
         block, head = _adapt_block(backbone_params, backbone_stats, bank_y, gens, bcfg=bcfg, tcfg=tcfg,
                                    epochs=tcfg.linear_epochs, head=head0, perm_span=spec.support_size,
                                    fmap_bank=fmap, bank_x=bank_x, schedule=inner_schedule)
-    with record_function("embed:linear"):
+    with span("embed:linear"):
         feats = _embed_episodes(backbone_params, backbone_stats, episodes, bcfg=bcfg, spec=spec, block=block,
                                 train=not tcfg.freeze_backbone)
     return _linear_scores(head, feats, spec)
@@ -594,11 +596,11 @@ def dampnet_member_lanes(backbone_params, backbone_stats, damp_params, damp_stat
         feats = _frozen_features(backbone_params, backbone_stats, episodes, bcfg=bcfg, spec=spec, member="dampnet",
                                  train=not frozen)
     mode, kw = ("unsup", {"unsup_stats": unsup_stats}) if unsup_stats is not None else ("domain_shift", {})
-    with torch.no_grad(), record_function("score:dampnet"):
+    with torch.no_grad(), span("score:dampnet"):
         out = torch.softmax(dampnet_scores(damp_params, damp_state, feats, dcfg, spec.n_query, mode=mode, **kw), dim=-1)
     if unsup_stats is not None or eval_mode == "finetune" or not with_linear_fusion:
         return out
-    with record_function("score:dampnet"):
+    with span("score:dampnet"):
         head, z_query = dampnet_probe_lanes(damp_params, damp_state, feats, gens, dcfg=dcfg, spec=spec)
         with torch.no_grad():  # the probe's softmax, halved (finetune.py:411)
             return out + torch.softmax(classifier_logits(head, z_query), dim=-1) / 2.0
@@ -639,7 +641,7 @@ def _fused_ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats
     dev = supports.device
     if head0 is None:
         head0 = _draw_heads(gens, bcfg.feat_dim, spec.n_way, dev)
-    with record_function("bank_fmap:linear"):
+    with span("bank_fmap:linear"):
         fmap_lin, _, n_lin = _member_bank(baseline_params, baseline_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                           aug_cfg=aug_cfg, gen_examples=gen_examples, clean_only=True)
     p_lin, loss_lin, tx_lin, icfg_lin, fin_lin = _prepare_adapt(
@@ -647,7 +649,7 @@ def _fused_ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats
         epochs=tcfg.linear_epochs, head=head0, perm_span=spec.support_size, fmap_bank=fmap_lin)
     if sched_lin is None and icfg_lin.epochs:
         sched_lin = lane_schedule(gens, icfg_lin, dev)
-    with record_function("bank_fmap:gnn"):
+    with span("bank_fmap:gnn"):
         fmap_gnn, _, n_gnn = _member_bank(gnn_params, gnn_stats, supports, gens, bcfg=bcfg, tcfg=tcfg,
                                           aug_cfg=aug_cfg, gen_examples=gen_examples)
     p_gnn, loss_gnn, tx_gnn, icfg_gnn, fin_gnn = _prepare_adapt(
@@ -655,17 +657,17 @@ def _fused_ensemble_lanes(baseline_params, baseline_stats, gnn_params, gnn_stats
         head=None, fmap_bank=fmap_gnn)
     if sched_gnn is None and icfg_gnn.epochs:
         sched_gnn = lane_schedule(gens, icfg_gnn, dev)
-    with record_function("adapt:pair"):
+    with span("adapt:pair"):
         a_lin, a_gnn = inner_fit_pair(loss_lin, p_lin, tx_lin, gens, icfg_lin, loss_gnn, p_gnn, tx_gnn, gens, icfg_gnn,
                                       schedule_a=sched_lin, schedule_b=sched_gnn, device=dev)
     lin_block, lin_head = fin_lin(a_lin)
     gnn_block, _ = fin_gnn(a_gnn)
-    with record_function("embed:linear"):
+    with span("embed:linear"):
         feats_b = _embed_episodes(baseline_params, baseline_stats, episodes, bcfg=bcfg, spec=spec, block=lin_block)
     s_lin = _linear_scores(lin_head, feats_b, spec)
-    with record_function("embed:gnn"):
+    with span("embed:gnn"):
         feats_g = _embed_episodes(gnn_params, gnn_stats, episodes, bcfg=bcfg, spec=spec, block=gnn_block)
-    with torch.no_grad(), record_function("score:gnn"):
+    with torch.no_grad(), span("score:gnn"):
         return s_lin + torch.softmax(gnn_scores(gnn_head, feats_g, gcfg, spec.n_query), dim=-1)
 
 
@@ -768,7 +770,7 @@ def make_eval_program(*, method: str, bcfg, gcfg: Optional[GnnNetCfg], spec: Epi
             episodes = center_batch(base, aug_cfg.image_size, dtype=dt)
             supports = base[:, :, : spec.n_support]
             if tcfg.bn_mode == "minibatch":
-                with record_function("bank_fmap:replicas"):
+                with span("bank_fmap:replicas"):
                     supports = torch.stack([make_eval_replicas(g, s, aug_cfg, gen_examples)
                                             for g, s in zip(gens, supports)])
         kw = dict(bcfg=bcfg, spec=spec, tcfg=tcfg, aug_cfg=aug_cfg, gen_examples=gen_examples, **draws)

@@ -13,6 +13,9 @@ with parameters and optimizer state carrying a leading ``[L]``, a schedule
 and ``w [T, B]`` (shared: the padding depends only on the position).  The
 loss is the sum of the lanes' losses, so each lane's gradient is its own
 loss's, exactly; the optimizers are elementwise on the stacked leaves.
+
+Each loop adds the steps it ran, times its lanes, to the lane batch's
+``adapt.lane_steps`` counter (``utils/metrics.count``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
+
+from mft_tpu_torch.utils.metrics import count
 
 
 class InnerLoopCfg(NamedTuple):
@@ -121,6 +126,11 @@ def _step(loops, loss_ofs):
             lp.leaves = [p.detach() + u.to(p.dtype) for p, u in zip(live, pytree.tree_leaves(updates))]
 
 
+def _count_steps(idx, steps: int) -> None:
+    """``steps`` of a loop over the schedule ``idx`` (``[T, B]``, or ``[L, T, B]`` with lanes)."""
+    count("adapt.lane_steps", (idx.shape[0] if idx.ndim == 3 else 1) * steps)
+
+
 def _schedule_of(gen, cfg: InnerLoopCfg, schedule, device):
     if schedule is not None:
         return schedule
@@ -148,6 +158,7 @@ def inner_fit(loss_fn: Callable, params, tx, gen, cfg: InnerLoopCfg, schedule=No
     loop = _Loop(params, tx)
     for t in range(w.shape[0]):
         _step([loop], [_at(loss_fn, idx, w, t)])
+    _count_steps(idx, w.shape[0])
     return loop.result()
 
 
@@ -172,6 +183,7 @@ def inner_fit_pair(loss_a: Callable, params_a, tx_a, gen_a, cfg_a: InnerLoopCfg,
     for loop, loss_fn, idx, w in ((a, loss_a, ia, wa), (b, loss_b, ib, wb)):
         for t in range(both, w.shape[0]):
             _step([loop], [_at(loss_fn, idx, w, t)])
+        _count_steps(idx, w.shape[0])
     return a.result(), b.result()
 
 
@@ -200,6 +212,7 @@ def inner_fit_epochwise(loss_fn: Callable, params, tx, gens, cfg: InnerLoopCfg, 
         for t in range(cfg.steps_per_epoch):
             chunk = {k: v[:, t * bs : (t + 1) * bs] for k, v in bank_e.items()}
             _step([loop], [lambda p, c=chunk, wt=w[t]: loss_fn(p, c, wt)])
+    count("adapt.lane_steps", perms.shape[0] * cfg.n_steps)
     return loop.result()
 
 
@@ -229,6 +242,7 @@ def inner_fit_carry(loss_fn: Callable, params, carry, tx, gen: Optional[torch.Ge
             frozen = pytree.tree_unflatten([p.detach() for p in live], spec)
             updates, state = tx.update(pytree.tree_unflatten(list(grads), spec), state, frozen)
             leaves = [p.detach() + u.to(p.dtype) for p, u in zip(live, pytree.tree_leaves(updates))]
+    _count_steps(idx_all, idx_all.shape[0])
     return pytree.tree_unflatten(leaves, spec), carry
 
 
