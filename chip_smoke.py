@@ -41,7 +41,9 @@ non-zero:
    ``--eval_batch 5`` call, each with its own 500-row bank and schedule: the
    update rule step by step on every lane, 20-step scans against the bound
    with planted lane faults (lane 0 on its neighbour's bank or schedule), and
-   the 500-step five-lane scan timed beside one lane; and the edge kernel on
+   the 500-step five-lane scan timed beside one lane; the same checks and
+   timing on the benchmark cells' 20 lanes, with each lane of a 20-step call
+   bit for bit against its single-lane call; and the edge kernel on
    a lane batch's B = 75 graphs at N = 30 and N = 130); and the scan at the
    synthetic pipeline's geometry (ResNet10's final block at 64 px, 4x4x256 ->
    2x2x512, 20 rows a step) under the bf16 rules and their planted faults;
@@ -208,6 +210,8 @@ DAMP_EPISODES = 5
 #: warm-up: one steady batch moved by up to a fifth between batches on one H100's host)
 LANES = 5
 LANE_EPISODES = 15
+#: the lanes of the benchmark's cells (--eval_batch 20): phase 3 holds the fused scan at this width too
+CELL_LANES = 20
 #: the other lane drives of phase 5 (each knob, eager, --ensemble_fuse lane, --freeze_backbone): two batches, the
 #: first the warm-up, so that the script's new drives fit its time limit
 KNOB_EPISODES = 2 * LANES
@@ -1435,8 +1439,10 @@ def fused_lane_checks(torch, fis, dev, geom, lanes: int, seed: int, failures, ta
 
 
 def time_fused_lanes(torch, fis, geom, p16, banks, bank_y, idx, w, label: str) -> dict:
-    """The whole scan (every step of ``idx``) on all lanes, timed beside one
-    lane in the same call; the bound is the lanes' operations or bytes."""
+    """The whole scan (every step of ``idx``) on all lanes, whose steps share
+    each step's grids, timed beside one lane in the same call and against
+    that lane's time as many times over as there are lanes (the lanes run in
+    turn); the bound is the lanes' operations or bytes."""
     lanes, n_steps, lr = banks.shape[0], idx.shape[1], 0.01
     one = cuda_time_ms(lambda: fis.fused_inner_scan_lanes({k: v[:1] for k, v in p16.items()}, banks[:1], bank_y,
                                                           idx[:1], w, geom=geom, lr=lr), iters=2, warmup=1)
@@ -1444,25 +1450,50 @@ def time_fused_lanes(torch, fis, geom, p16, banks, bank_y, idx, w, label: str) -
                       warmup=1)
     b = fused_bound(geom, n_steps, 2, 2)
     bound_ms = lanes * max(b["ms_tc"], b["ms_bytes"])
-    print(f"fused_inner_scan{label} T={n_steps} bf16 L={lanes}: kernel_ms={ms:.3f} against L=1 {one:.3f} in the same "
-          f"call ({ms / one:.2f} x: the lanes run one after another); bound_ms={bound_ms:.3f} ({lanes} lanes' "
+    print(f"fused_inner_scan{label} T={n_steps} bf16 L={lanes}: kernel_ms={ms:.3f}, the lanes together, against L=1 "
+          f"{one:.3f} in the same call ({ms / one:.2f} x one lane's; {lanes} lanes in turn would take "
+          f"{lanes * one:.3f}, {lanes * one / ms:.2f} x the lanes together); bound_ms={bound_ms:.3f} ({lanes} lanes' "
           f"{'operations' if b['ms_tc'] >= b['ms_bytes'] else 'bytes'})")
     return {"ms": ms, "bound_ms": bound_ms, "one": one}
 
 
+def fused_lanes_bitwise(fis, geom, p16, banks, bank_y, idx, w, failures, n_steps: int = 20):
+    """Every lane of one ``n_steps``-step call bit for bit against a call
+    with that lane alone (same parameters, bank and schedule): a lane's
+    tiling, split-K chunks and summation order do not depend on the lanes
+    beside it.  Appends each lane that differs to ``failures``."""
+    lanes, lr = banks.shape[0], 0.01
+    idx, w = idx[:, :n_steps].contiguous(), w[:n_steps]
+    got = fis.fused_inner_scan_lanes(p16, banks, bank_y, idx, w, geom=geom, lr=lr)
+    differ = []
+    for l in range(lanes):
+        one = fis.fused_inner_scan_lanes({k: v[l:l + 1] for k, v in p16.items()}, banks[l:l + 1], bank_y,
+                                         idx[l:l + 1], w, geom=geom, lr=lr)
+        if not all(bool((got[k][l] == one[k][0]).all()) for k in fis.PKEYS):
+            differ.append(l)
+    print(f"fused_inner_scan bf16 carry, L={lanes}, T={n_steps}: each lane against its single-lane call: "
+          f"{lanes - len(differ)} of {lanes} bit for bit" + (f" (differ: lanes {differ})" if differ else ""))
+    failures += [f"fused_inner_scan L={lanes}: lane {l} differs from its single-lane call" for l in differ]
+
+
 def phase_fused_lanes(torch, dev):
     """The fused scan on LANES lanes at the main path's geometry, as
-    ``--eval_batch 5`` calls it (fused_lane_checks); then the 500-step scan
-    on LANES lanes timed beside one lane (the host loop enqueues the lanes
-    one after another)."""
+    ``--eval_batch 5`` calls it, and on CELL_LANES, as the benchmark's cells
+    call it (fused_lane_checks; at CELL_LANES each lane also bit for bit
+    against its single-lane call); then the 500-step scan on both, whose
+    steps share each step's grids, timed beside one lane."""
     from mft_tpu_torch.kernels import fused_inner_scan as fis
 
     failures, geom = [], fis.BlockGeom()
     inputs = fused_lane_checks(torch, fis, dev, geom, LANES, 5, failures)
+    cell = fused_lane_checks(torch, fis, dev, geom, CELL_LANES, 7, failures)
+    fused_lanes_bitwise(fis, geom, *cell, failures)
     if failures:
-        fail(f"the fused inner scan on {LANES} lanes disagrees with its plain version: " + ", ".join(failures))
+        fail(f"the fused inner scan on {LANES} and {CELL_LANES} lanes: " + ", ".join(failures))
     t = time_fused_lanes(torch, fis, geom, *inputs, "")
-    return {"ms_lanes": t["ms"], "bound_ms_lanes": t["bound_ms"], "ms_lanes_one": t["one"]}
+    tc = time_fused_lanes(torch, fis, geom, *cell, "")
+    return {"ms_lanes": t["ms"], "bound_ms_lanes": t["bound_ms"], "ms_lanes_one": t["one"],
+            "ms_lanes_cell": tc["ms"], "bound_ms_lanes_cell": tc["bound_ms"]}
 
 
 def phase_cross_device(torch, dev):
@@ -3254,7 +3285,7 @@ def main():
     rows[1].update(phase_fused_inner_scan_50(torch, dev))
     mark("fused scan checks, 5000-row bank")
     rows[1].update(phase_fused_lanes(torch, dev))
-    mark(f"fused scan checks, {LANES} lanes")
+    mark(f"fused scan checks, {LANES} and {CELL_LANES} lanes")
     if "--kernels-only" in sys.argv[1:]:  # for work on a kernel: stop after the checks against the plain versions
         print("kernels only: stopping before the eval phases")
         return
@@ -3436,8 +3467,8 @@ def main():
              "bound_by", "library_ms", "launches_train", "ms_train", "plain_ms_train", "bound_ms_train",
              "backward_plain_ms_train", "launches_50", "ms_50", "plain_ms_50", "bound_ms_50", "launches_train50",
              "ms_train50", "bound_ms_train50", "backward_plain_ms_train50", "max_abs_err_50", "launches_dampnet",
-             "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "launches_faithful_lanes",
-             "launches_dampnet_lanes", "launches_lanes50",
+             "launches_lanes", "ms_lanes", "plain_ms_lanes", "bound_ms_lanes", "ms_lanes_one", "ms_lanes_cell",
+             "bound_ms_lanes_cell", "launches_faithful_lanes", "launches_dampnet_lanes", "launches_lanes50",
              "ms_lanes50", "bound_ms_lanes50", "launches_fw", "ms_fw", "launches_r18", "ms_r18", "launches_r34",
              "ms_r34", "launches_train_fw", "launches_ckpt", "launches_mesh", "launches_pipeline", "ms_pipeline",
              "plain_ms_pipeline", "bound_ms_pipeline", "backward_plain_ms_pipeline", "ms_pipeline_eval",

@@ -21,16 +21,30 @@
 // of bf16 parameters, 14.7 MB of moments), the operand tiles (once per
 // output tile) and the split-K partial sums through L2: about 176 MB a step
 // (chip_smoke.py computes it from the shapes and this tiling).  What the
-// design does about it: the seven products run on the tensor cores from bf16
-// operands stored as bf16, every pass over rows or parameters moves 16 bytes
-// a thread on at least 128 blocks, kernels that share inputs share a launch,
-// the conv gradients go from the accumulators into the Adam update without
-// touching memory, and each kernel is a programmatic dependent launch, so
-// that no gap is left between one kernel's end and the next one's start.
+// design does about it: the lanes of a call (the eval's episodes) step
+// together, each of a step's kernels covering every lane in one grid, so the
+// chain's latency is paid once a step and not once a lane-step; the seven
+// products run on the tensor cores from bf16 operands stored as bf16, every
+// pass over rows or parameters moves 16 bytes a thread on at least 128
+// blocks a lane, kernels that share inputs share a launch, the conv
+// gradients go from the accumulators into the Adam update without touching
+// memory, and each kernel is a programmatic dependent launch, so that no gap
+// is left between one kernel's end and the next one's start; each kernel
+// takes the lanes in the reverse order of the one before it, so it starts on
+// the operands that one wrote last, still in L2.  With many lanes their
+// states no longer fit L2, and what stays per lane is its state read and
+// written every step: 3,673,088 bf16 parameters and their two bf16
+// moments, 44.1 MB a lane-step, 13.2 us at 3.35 TB/s, besides about 5 us of
+// products at half the bf16 peak.  The benchmark's roofline share of the scan
+// (fused_bound) counts only the gathered bank rows as bytes, so it stays far
+// from 100 % even at that floor.
 //
-// A step with a bf16 bank (the tensor-core route), 8 kernels:
+// A step with a bf16 bank (the tensor-core route), 8 kernels, each one grid
+// for all lanes of the call (a lane's blocks find its operands from the
+// lane's grid coordinate and LaneLayout's strides):
 //   1  conv_mma<0, TagConv1ScFwd>  conv1 and the 1x1 shortcut conv (the
-//                                  shortcut as one more blockIdx.z slice)
+//                                  shortcut as one more blockIdx.z slice;
+//                                  blockIdx.z = lane * slices + slice)
 //   2  bn_fwd<1>                   BN1 + ReLU -> z1 (bf16), xhat1, inv1
 //   3  conv_mma<0, TagConv2Fwd>    conv2
 //   4  bn_fwd<2>                   BN2 and the shortcut's BN, added -> pre;
@@ -41,19 +55,23 @@
 //   6  conv_mma<1, TagConv2Dx>     conv2's input gradient as a gather
 //                                  (flipped taps): no scatter, fixed order
 //   7  bn_bwd<1>                   ReLU + BN1 backward -> dy1 (bf16)
-//   8  wgrad_mma<TagDwAllAdam>     the three weight gradients, one grid; a
-//                                  tile is final, so its block applies
-//                                  torch-Adam to its weights in place and
-//                                  the f32 conv gradients never reach
-//                                  memory (two more blocks update the BN
-//                                  vectors)
+//   8  wgrad_mma<TagDwAllAdam>     the three weight gradients, one grid
+//                                  (blockIdx.y the lane); a tile is final,
+//                                  so its block applies torch-Adam to its
+//                                  weights in place and the f32 conv
+//                                  gradients never reach memory (two more
+//                                  blocks a lane update the BN vectors)
 // The products are warpgroup wgmma.mma_async m64n128k16 (bf16 in, f32
 // accumulators in registers), both operands from shared memory in the
-// 128-byte swizzle, staged by 16-byte cp.async through a 4-stage ring.  The
+// 128-byte swizzle, staged by 16-byte cp.async through a ring of 3 stages for
+// the forward and input-gradient products (so that three blocks fit an SM
+// when the lanes fill the card) and of 4 for the weight gradients.  The
 // A operand of a forward or input-gradient product is an im2col gather (zero
 // rows for the padding and for m >= rows, by cp.async's zero fill); with only
 // 245 rows these have 16 output tiles, so K is split over blockIdx.z into
-// partial sums that the following BN kernel adds in a fixed order.  A weight
+// partial sums that the following BN kernel adds in a fixed order (the split
+// follows from the geometry alone, not from the number of lanes, so a lane's
+// sums are the same whatever lanes share its grid).  A weight
 // gradient reduces over the rows, so both of its operands are MN-major and
 // the instruction's transpose bits are set; its 224 tiles of 128 x 128 need
 // no split.  conv2's input gradient reads W2 with the reduction index
@@ -62,10 +80,11 @@
 // the Adam update writes beside the f32 parameters.
 //
 // An f32 bank (the strict-parity path) keeps the f32 FMA products on the CUDA
-// cores (64 x 64 tiles, 4 x 4 a thread; no TF32), 12 kernels a step, with the
-// same BN and loss kernels and Adam as a kernel of its own.  fused_step_grads_* and
-// fused_inner_scan_product take a route argument (1 = FMA) so that a check
-// can run the FMA products on bf16 operands; the scan has none.
+// cores (64 x 64 tiles, 4 x 4 a thread; no TF32), 12 kernels a step, one lane
+// after another, with the same BN and loss kernels and Adam as a kernel of its
+// own.  fused_step_grads_* and fused_inner_scan_product take a route argument
+// (1 = FMA) so that a check can run the FMA products on bf16 operands; the
+// scan has none.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC
 // (mft_tpu_torch/kernels/build.py); bound with ctypes through the plain C
@@ -96,10 +115,11 @@ constexpr int TARGET_BLOCKS = 264;            // FMA route: two blocks per SM fo
 constexpr int MMA_TARGET_BLOCKS = 128;        // tensor-core route: blocks of a split GEMM
 constexpr int MMA_N = 128;                    // output columns per wgmma tile
 constexpr int MMA_KB = 64;                    // reduction elements per stage of a K-major operand (128 bytes)
-constexpr int MMA_STAGES = 4;
+constexpr int MMA_STAGES = 4;                 // weight gradients: stages of the cp.async ring
+constexpr int CONV_STAGES = 3;                // forward and input-gradient products: three blocks fit an SM
 constexpr int WG_KB = 32;                     // rows reduced per stage of a weight gradient
 constexpr int CONV_STAGE_BYTES = 64 * 128 + MMA_N * 128;
-constexpr int CONV_SMEM = MMA_STAGES * CONV_STAGE_BYTES + 1024;
+constexpr int CONV_SMEM = CONV_STAGES * CONV_STAGE_BYTES + 1024;
 constexpr int WG_STAGE_BYTES = 4 * WG_KB * 128;
 constexpr int WG_TILE_LD = MMA_N + 4;         // row stride (floats) of the f32 tile the Adam epilogue stages
 constexpr int WG_SMEM = (MMA_STAGES * WG_STAGE_BYTES > 128 * WG_TILE_LD * 4 ? MMA_STAGES * WG_STAGE_BYTES
@@ -120,10 +140,38 @@ __device__ __forceinline__ float round_cd(float v) {
 template <bool BF16> struct Act { typedef float type; };
 template <> struct Act<true> { typedef bf16 type; };
 
-// First statement of every kernel: it may have been placed on the SMs while
-// its predecessor on the stream was still draining (see launch()); wait until
+// Before every kernel's first access to memory (what comes before it computes
+// from the arguments alone): it may have been placed on the SMs while its
+// predecessor on the stream was still draining (see launch()); wait until
 // that one has completed and its writes are visible.
 __device__ __forceinline__ void grid_dependency_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
+// How the lanes of one grid lie in memory (the tensor-core route steps every
+// lane of a call in the same grids): n lanes, and for each kind of operand
+// the bytes from one lane's to the next's; 0 for an operand the lanes share.
+struct LaneLayout {
+  int n;
+  size_t scratch;  // the lane's slice of the caller's scratch: moments, activations, partial sums
+  size_t param;    // the parameters in their carry dtype
+  size_t wq;       // the bf16 weights the products read (the parameters, or their shadow in the scratch)
+  size_t bank;     // the gathered bank
+  size_t idx;      // the minibatch schedule
+  bool reverse;    // the grid takes the lanes last to first (see lane_at)
+};
+
+// The lane of a grid's lane slot: the blocks of a grid start in the order of
+// their index, so a kernel that takes the lanes in the reverse order of its
+// predecessor starts on the lanes whose operands that one wrote last, which
+// are still in L2.  A lane's work does not depend on its place in the order.
+__device__ __forceinline__ int lane_at(int slot, int lanes, bool reverse) { return reverse ? lanes - 1 - slot : slot; }
+
+// lane `lane`'s copy of an operand whose lane 0 is at p (byte arithmetic on
+// the pointer itself, so that the compiler still knows what it points into)
+template <typename T>
+__device__ __forceinline__ T* lane_ptr(T* p, size_t stride, int lane) {
+  typedef typename std::conditional<std::is_const<T>::value, const char, char>::type Byte;
+  return (T*)((Byte*)p + static_cast<size_t>(lane) * stride);
+}
 
 // torch-Adam for one element: f32 math, moments rounded to bf16 and the
 // rounded moments feeding the update.  The *_rn intrinsics keep the compiler
@@ -531,24 +579,35 @@ struct ConvJob {
   Gather g;
   int kchunk;       // K range of a split, a multiple of MMA_KB
   int splits;
+  size_t lx, limg, lw, lout;  // bytes from one lane's X, img, W, out to the next lane's (LaneLayout)
 };
 struct ConvJobs {
-  ConvJob job[2];   // blockIdx.z < job[0].splits belongs to job[0], the rest to job[1]
+  ConvJob job[2];   // of a lane's job[0].splits + job[1].splits blocks along z, the first job[0].splits belong to job[0]
   int N;
+  bool reverse;     // lanes last to first (LaneLayout)
 };
 
-// Grid: (N / MMA_N, ceil(R / 64), job[0].splits + job[1].splits); one warpgroup.
+// Grid: (N / MMA_N, ceil(R / 64), lanes * (job[0].splits + job[1].splits)),
+// blockIdx.z = lane * (job[0].splits + job[1].splits) + split; one warpgroup.
 // C and every kchunk are multiples of MMA_KB, N of MMA_N.
 template <int MODE, typename TAG>
 __global__ void __launch_bounds__(128)
 conv_mma_kernel(const ConvJobs js) {
+  // the lane's operands from the arguments alone, before the wait
+  const int per_lane = js.job[0].splits + js.job[1].splits;
+  const int slot = blockIdx.z / per_lane;
+  const int lane = lane_at(slot, gridDim.z / per_lane, js.reverse);
+  int z = blockIdx.z - slot * per_lane;
+  const bool second = z >= js.job[0].splits;
+  if (second) z -= js.job[0].splits;
+  const ConvJob& j = second ? js.job[1] : js.job[0];
+  const bf16* const jX = lane_ptr(j.X, j.lx, lane);
+  const int* const jimg = lane_ptr(j.img, j.limg, lane);
+  const bf16* const jW = lane_ptr(j.W, j.lw, lane);
+  float* const jout = lane_ptr(j.out, j.lout, lane);
   grid_dependency_wait();
   extern __shared__ unsigned char smem_raw[];
   const uint32_t smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  int z = blockIdx.z;
-  const bool second = z >= js.job[0].splits;
-  if (second) z -= js.job[0].splits;
-  const ConvJob j = second ? js.job[1] : js.job[0];
   const Gather g = j.g;
   const int N = js.N;
   const int hw = g.hout * g.hout;
@@ -570,12 +629,12 @@ conv_mma_kernel(const ConvJobs js) {
       const int b = m / hw, rem = m - b * hw;
       roy[i] = rem / g.hout;
       rox[i] = rem - roy[i] * g.hout;
-      rimg[i] = j.img ? j.img[b] : b;
+      rimg[i] = jimg ? jimg[b] : b;
     }
   }
 
   auto load_stage = [&](int kb) {
-    const uint32_t a_base = smem + (kb % MMA_STAGES) * CONV_STAGE_BYTES, b_base = a_base + 64 * 128;
+    const uint32_t a_base = smem + (kb % CONV_STAGES) * CONV_STAGE_BYTES, b_base = a_base + 64 * 128;
     const int k0 = kbeg + kb * MMA_KB;
     const int tap = k0 / g.C, c0 = k0 - tap * g.C;
     const int ky = tap / g.ksize, kx = tap - ky * g.ksize;
@@ -585,7 +644,7 @@ conv_mma_kernel(const ConvJobs js) {
       const int r = tid / 8 + 16 * i;
       const int iy = roy[i] * g.stride + dy, ix = rox[i] * g.stride + dx;
       const bool ok = rimg[i] >= 0 && iy >= 0 && iy < g.hin && ix >= 0 && ix < g.hin;
-      const bf16* src = ok ? j.X + (static_cast<size_t>(rimg[i] * g.hin + iy) * g.hin + ix) * g.C + c0 + 8 * ch : j.X;
+      const bf16* src = ok ? jX + (static_cast<size_t>(rimg[i] * g.hin + iy) * g.hin + ix) * g.C + c0 + 8 * ch : jX;
       cp_async16(a_base + swz(r, ch), src, ok);
     }
 #pragma unroll
@@ -594,11 +653,11 @@ conv_mma_kernel(const ConvJobs js) {
       if constexpr (MODE == 0) {  // MN-major: two column blocks of [64 k][64 n]
         const int jb = q / 512, r = (q / 8) % 64;
         cp_async16(b_base + jb * 64 * 128 + swz(r, ch),
-                   j.W + static_cast<size_t>(k0 + r) * N + n0 + 64 * jb + 8 * ch, true);
+                   jW + static_cast<size_t>(k0 + r) * N + n0 + 64 * jb + 8 * ch, true);
       } else {  // K-major: [128 n][64 k]
         const int r = q / 8;
         cp_async16(b_base + swz(r, ch),
-                   j.W + (static_cast<size_t>(tap) * N + n0 + r) * g.C + c0 + 8 * ch, true);
+                   jW + (static_cast<size_t>(tap) * N + n0 + r) * g.C + c0 + 8 * ch, true);
       }
     }
   };
@@ -607,17 +666,17 @@ conv_mma_kernel(const ConvJobs js) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+  for (int s = 0; s < CONV_STAGES - 1; ++s) {
     if (s < nk) load_stage(s);
     cp_async_commit();
   }
   for (int kb = 0; kb < nk; ++kb) {
-    cp_async_wait<MMA_STAGES - 2>();  // this thread's copies of stage kb have landed
+    cp_async_wait<CONV_STAGES - 2>();  // this thread's copies of stage kb have landed
     fence_proxy_async();
     __syncthreads();                  // everyone's have, and everyone is past the wgmma that read stage kb - 1
-    if (kb + MMA_STAGES - 1 < nk) load_stage(kb + MMA_STAGES - 1);
+    if (kb + CONV_STAGES - 1 < nk) load_stage(kb + CONV_STAGES - 1);
     cp_async_commit();
-    const uint32_t a_base = smem + (kb % MMA_STAGES) * CONV_STAGE_BYTES, b_base = a_base + 64 * 128;
+    const uint32_t a_base = smem + (kb % CONV_STAGES) * CONV_STAGE_BYTES, b_base = a_base + 64 * 128;
     fence_acc(acc);
     wgmma_fence();
 #pragma unroll
@@ -633,7 +692,7 @@ conv_mma_kernel(const ConvJobs js) {
     fence_acc(acc);
   }
 
-  float* o = j.out + static_cast<size_t>(z) * R * N;
+  float* o = jout + static_cast<size_t>(z) * R * N;
   const int row = m0 + 16 * (tid / 32) + (tid % 32) / 4, col = n0 + 2 * (tid % 4);
 #pragma unroll
   for (int jn = 0; jn < 16; ++jn) {
@@ -653,6 +712,7 @@ struct WgradJob {
   float* out;      // [ksize*ksize*C, N]
   Gather g;
   int tiles;       // ceil(ksize*ksize*C / 128) * (N / MMA_N)
+  size_t lx, limg, ldy;  // bytes from one lane's X, img, DY (and out) to the next lane's (LaneLayout)
 };
 struct WgradJobs {
   WgradJob job[3];
@@ -671,18 +731,37 @@ struct WgradAdam {
   size_t off[3], vec_off[3];
   int vec_len, vec_blocks, tiles;
   AdamCoef k;
+  size_t lp, ls;  // bytes from one lane's p to the next lane's, and from its mu, nu, shadow, grads
 };
 
-// Grid: sum of the jobs' tiles; two warpgroups, each 64 of the tile's 128
+// Grid: (sum of the jobs' tiles [+ vec_blocks], lanes), blockIdx.y the lane;
+// two warpgroups, each 64 of the tile's 128
 // weight rows.  Both operands are MN-major (the reduction runs over the rows
 // m, which are the slow index of X and of DY); rows m >= R are zero-filled.
 // C is a multiple of 64, N of MMA_N.  PT = void: the tile goes to j.out.
 // PT = the carry dtype: a weight-gradient tile is final (no split), so the
 // block applies torch-Adam to its 128 x 128 weights right away and the f32
 // gradients never reach memory; nothing else in the launch reads the weights.
+// Two blocks an SM, so that one block's Adam update overlaps the other's
+// products (the bound also makes ptxas schedule for it: 1.4 % faster at 20
+// lanes, where the registers already allowed two).
 template <typename TAG, typename PT>
-__global__ void __launch_bounds__(256)
-wgrad_mma_kernel(const WgradJobs js, const WgradAdam ad) {
+__global__ void __launch_bounds__(256, 2)
+wgrad_mma_kernel(const WgradJobs js, WgradAdam ad) {
+  // the lane's operands from the arguments alone, before the wait
+  const int lane = blockIdx.y;
+  ad.p = lane_ptr(ad.p, ad.lp, lane);
+  ad.mu = lane_ptr(ad.mu, ad.ls, lane);
+  ad.nu = lane_ptr(ad.nu, ad.ls, lane);
+  ad.shadow = ad.shadow ? lane_ptr(ad.shadow, ad.ls, lane) : nullptr;
+  ad.grads = lane_ptr(ad.grads, ad.ls, lane);
+  int t = blockIdx.x, ji = 0;
+  while (ji + 1 < js.njobs && t >= js.job[ji].tiles) t -= js.job[ji++].tiles;
+  WgradJob j = ji == 0 ? js.job[0] : (ji == 1 ? js.job[1] : js.job[2]);
+  j.X = lane_ptr(j.X, j.lx, lane);
+  j.img = lane_ptr(j.img, j.limg, lane);
+  j.DY = lane_ptr(j.DY, j.ldy, lane);
+  j.out = lane_ptr(j.out, j.ldy, lane);
   grid_dependency_wait();
   extern __shared__ unsigned char smem_raw[];
   __shared__ int srow[MAX_ROWS];  // (image << 16) | (oy << 8) | ox of each row m
@@ -698,9 +777,6 @@ wgrad_mma_kernel(const WgradJobs js, const WgradAdam ad) {
       return;
     }
   }
-  int t = blockIdx.x, ji = 0;
-  while (ji + 1 < js.njobs && t >= js.job[ji].tiles) t -= js.job[ji++].tiles;
-  const WgradJob j = ji == 0 ? js.job[0] : (ji == 1 ? js.job[1] : js.job[2]);
   const Gather g = j.g;
   const int N = js.N;
   const int hw = g.hout * g.hout;
@@ -854,16 +930,35 @@ struct BnFwdJob {
   float *xhat, *inv;
 };
 
+// the job of lane `lane`: its parameters and its slice of the scratch
+template <typename WT>
+__device__ __forceinline__ BnFwdJob<WT> at_lane(BnFwdJob<WT> j, const LaneLayout& ln, int lane) {
+  j.parts = lane_ptr(j.parts, ln.scratch, lane);
+  j.scale = lane_ptr(j.scale, ln.param, lane);
+  j.bias = lane_ptr(j.bias, ln.param, lane);
+  j.xhat = lane_ptr(j.xhat, ln.scratch, lane);
+  j.inv = lane_ptr(j.inv, ln.scratch, lane);
+  return j;
+}
+
 // Masked batch-stats BN forward; a block owns BN_CH channels (16-byte
 // accesses along C) and a thread up to BN_RPT rows, which stay in registers
 // over the three passes.  NJ = 1: act = round_cd(relu(h)), the next conv's
 // input.  NJ = 2: pre = h of j0 + h of j1, the block's pre-activation, and
 // logits[b, c] = round_cd(mean over sample b's hw pixels of relu(pre)), the
-// pooled features.  Grid: C / BN_CH.
+// pooled features.  Grid: (C / BN_CH, lanes), blockIdx.y the lane (ln: where
+// its operands lie; w_t is shared).
 template <typename WT, bool CD_BF16, int NJ>
 __global__ void __launch_bounds__(THREADS)
 bn_fwd_kernel(BnFwdJob<WT> j0, BnFwdJob<WT> j1, const float* __restrict__ w_t, int batch, int hw, int C,
-              typename Act<CD_BF16>::type* __restrict__ act, float* __restrict__ pre, float* __restrict__ logits) {
+              typename Act<CD_BF16>::type* __restrict__ act, float* __restrict__ pre, float* __restrict__ logits,
+              const LaneLayout ln) {
+  const int lane = lane_at(blockIdx.y, gridDim.y, ln.reverse);
+  act = lane_ptr(act, ln.scratch, lane);
+  pre = lane_ptr(pre, ln.scratch, lane);
+  logits = lane_ptr(logits, ln.scratch, lane);
+  j0 = at_lane(j0, ln, lane);
+  j1 = at_lane(j1, ln, lane);
   grid_dependency_wait();
   __shared__ float4 red[THREADS / 32];
   __shared__ float4 pool[NJ == 2 ? MAX_ROWS : 1];
@@ -955,6 +1050,18 @@ struct BnBwdJob {
   float *dscale, *dbias;
 };
 
+template <typename WT, typename AT>
+__device__ __forceinline__ BnBwdJob<WT, AT> at_lane(BnBwdJob<WT, AT> j, const LaneLayout& ln, int lane) {
+  j.xhat = lane_ptr(j.xhat, ln.scratch, lane);
+  j.inv = lane_ptr(j.inv, ln.scratch, lane);
+  j.scale = lane_ptr(j.scale, ln.param, lane);
+  j.bias = lane_ptr(j.bias, ln.param, lane);
+  j.dy = lane_ptr(j.dy, ln.scratch, lane);
+  j.dscale = lane_ptr(j.dscale, ln.scratch, lane);
+  j.dbias = lane_ptr(j.dbias, ln.scratch, lane);
+  return j;
+}
+
 // What MODE 0 of bn_bwd_kernel needs for the loss: the pooled features as
 // logits [B, C], the labels bank_y[idx_t[b]], and where ce[b] goes.
 struct CeArgs {
@@ -974,12 +1081,20 @@ struct CeArgs {
 //           0 writes ce[b] = (lse - logit_y) * w_b.
 //   MODE 1: h > 0 ? sum_s src[s][r, c] : 0 with h = xhat*scale + bias
 //           (ReLU backward of j0's own output; src = split partial sums)
-// Grid: C / BN_CH.
+// Grid: (C / BN_CH, lanes), blockIdx.y the lane, as bn_fwd_kernel (bank_y is shared).
 template <typename WT, bool CD_BF16, int MODE>
 __global__ void __launch_bounds__(THREADS)
 bn_bwd_kernel(const float* __restrict__ src, int S, const float* __restrict__ pre, CeArgs ce,
               BnBwdJob<WT, typename Act<CD_BF16>::type> j0, BnBwdJob<WT, typename Act<CD_BF16>::type> j1,
-              const float* __restrict__ w_t, int batch, int hw, int C) {
+              const float* __restrict__ w_t, int batch, int hw, int C, const LaneLayout ln) {
+  const int lane = lane_at(blockIdx.y, gridDim.y, ln.reverse);
+  src = lane_ptr(src, ln.scratch, lane);
+  pre = lane_ptr(pre, ln.scratch, lane);
+  ce.logits = lane_ptr(ce.logits, ln.scratch, lane);
+  ce.idx_t = lane_ptr(ce.idx_t, ln.idx, lane);
+  ce.ce = lane_ptr(ce.ce, ln.scratch, lane);
+  j0 = at_lane(j0, ln, lane);
+  j1 = at_lane(j1, ln, lane);
   grid_dependency_wait();
   __shared__ float4 red[THREADS / 32];
   __shared__ float zmax_s[MODE == 0 ? MAX_ROWS : 1], se_s[MODE == 0 ? MAX_ROWS : 1];
@@ -1086,9 +1201,12 @@ adam_kernel(PT* __restrict__ p, bf16* __restrict__ mu, bf16* __restrict__ nu, co
   if (i < n) adam_eight(p, mu, nu, shadow, i, ld8(g, i), k);
 }
 
-// bf16 copy of f32 parameters (the tensor-core products' weights under an f32 carry)
+// bf16 copy of f32 parameters (the tensor-core products' weights under an f32
+// carry); blockIdx.y the lane
 __global__ void __launch_bounds__(THREADS)
-round_params_kernel(const float* __restrict__ p, bf16* __restrict__ shadow, size_t n) {
+round_params_kernel(const float* __restrict__ p, bf16* __restrict__ shadow, size_t n, const LaneLayout ln) {
+  p = lane_ptr(p, ln.param, blockIdx.y);
+  shadow = lane_ptr(shadow, ln.wq, blockIdx.y);
   grid_dependency_wait();
   const size_t i = (static_cast<size_t>(blockIdx.x) * THREADS + threadIdx.x) * 8;
   if (i < n) st8(shadow, i, ld8(p, i));
@@ -1200,9 +1318,9 @@ Scratch make_scratch(const Geom& g, bool mma) {
 }
 
 // Every kernel goes out as a programmatic dependent launch: its blocks may
-// be placed while its predecessor on the stream drains, and it begins with
-// grid_dependency_wait(), which holds it until that predecessor has
-// completed and its writes are visible.
+// be placed while its predecessor on the stream drains, and before its first
+// access to memory it calls grid_dependency_wait(), which holds it until that
+// predecessor has completed and its writes are visible.
 template <typename... P, typename... A>
 void launch(void (*kernel)(P...), dim3 grid, dim3 block, size_t smem, cudaStream_t st, A&&... args) {
   cudaLaunchAttribute attr;
@@ -1270,26 +1388,32 @@ Gathers make_gathers(const Geom& g) {
       {g.batch, g.h_out, g.h_out, 1, 3, 1, -1, g.c_out}};      // conv2's input gradient over dy2
 }
 
+// lanes: the lanes of one grid (the jobs' lane strides say where each lies)
 template <int MODE, typename TAG>
-int launch_conv_mma(const Geom& g, const ConvJob& a, const ConvJob* b, cudaStream_t st) {
+int launch_conv_mma(const Geom& g, const ConvJob& a, const ConvJob* b, cudaStream_t st, int lanes = 1,
+                    bool reverse = false) {
   ConvJobs js;
   js.job[0] = a;
   js.job[1] = b ? *b : a;
   if (!b) js.job[1].splits = 0;
   js.N = g.c_out;
-  const dim3 grid(g.c_out / MMA_N, cdiv(g.rows, 64), js.job[0].splits + js.job[1].splits);
+  js.reverse = reverse;
+  const dim3 grid(g.c_out / MMA_N, cdiv(g.rows, 64), lanes * (js.job[0].splits + js.job[1].splits));
   launch(conv_mma_kernel<MODE, TAG>, grid, 128, CONV_SMEM, st, js);
   LAUNCH_CHECK();
   return 0;
 }
 
-WgradJob wgrad_job(const Geom& g, const bf16* X, const int* img, const bf16* DY, float* out, const Gather& ga) {
-  return WgradJob{X, img, DY, out, ga, cdiv(ga.ksize * ga.ksize * ga.C, 128) * (g.c_out / MMA_N)};
+WgradJob wgrad_job(const Geom& g, const bf16* X, const int* img, const bf16* DY, float* out, const Gather& ga,
+                   size_t lx = 0, size_t limg = 0, size_t ldy = 0) {
+  return WgradJob{X, img, DY, out, ga, cdiv(ga.ksize * ga.ksize * ga.C, 128) * (g.c_out / MMA_N), lx, limg, ldy};
 }
 
-// adam: null to write the gradients; else the update is applied in place (PT: the carry dtype)
+// adam: null to write the gradients; else the update is applied in place (PT: the carry dtype).  lanes: as
+// launch_conv_mma's
 template <typename TAG, typename PT = void>
-int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, const WgradAdam* adam, cudaStream_t st) {
+int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, const WgradAdam* adam, cudaStream_t st,
+                     int lanes = 1) {
   WgradJobs js;
   int tiles = 0;
   for (int i = 0; i < 3; ++i) {
@@ -1300,7 +1424,7 @@ int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, const Wgrad
   js.N = g.c_out;
   WgradAdam ad = adam ? *adam : WgradAdam{};
   ad.tiles = tiles;
-  launch(wgrad_mma_kernel<TAG, PT>, tiles + ad.vec_blocks, 256, WG_SMEM, st, js, ad);
+  launch(wgrad_mma_kernel<TAG, PT>, dim3(tiles + ad.vec_blocks, lanes), 256, WG_SMEM, st, js, ad);
   LAUNCH_CHECK();
   return 0;
 }
@@ -1311,11 +1435,13 @@ int launch_wgrad_mma(const Geom& g, const WgradJob* jobs, int njobs, const Wgrad
 // parameters as bf16 (p itself under a bf16 carry), read by the MMA route only.
 // adam (MMA route only; p, mu, nu, shadow and the coefficients filled in):
 // the weight-gradient launch applies the update instead of writing the conv
-// gradients; the BN gradients still pass through `grads`.
+// gradients; the BN gradients still pass through `grads`.  ln: the lanes that
+// each grid steps together (the MMA route; the FMA kernels take one lane),
+// every pointer here being lane 0's; w_t and bank_y are shared.
 template <typename PT, typename XT, bool MMA>
 int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, const bf16* wq, const XT* bank,
                   const int* bank_y, const int* idx_t, const float* w_t, float* grads, const WgradAdam* adam,
-                  cudaStream_t st) {
+                  const LaneLayout& ln, cudaStream_t st) {
   constexpr bool CD = sizeof(XT) == sizeof(bf16);
   typedef typename Act<CD>::type AT;
   const ParamOffsets o = param_offsets(g);
@@ -1329,14 +1455,21 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
   const dim3 tiles(cdiv(co, TN), cdiv(R, TM));
   const dim3 tiles1(tiles.x, tiles.y, s.splits1), tiles2(tiles.x, tiles.y, s.splits2);  // K split over z
   const dim3 wg1(cdiv(co, TN), cdiv(9 * ci, TM)), wg2(cdiv(co, TN), cdiv(9 * co, TM)), wgsc(cdiv(co, TN), cdiv(ci, TM));
-  const dim3 bn_grid(co / BN_CH);
+  const dim3 bn_grid(co / BN_CH, ln.n);
   int err;
+  if (!MMA && ln.n != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // each kernel takes the lanes in the reverse order of the one before it (lane_at); the weight-gradient
+  // launch, last, goes first to last
+  LaneLayout up = ln, down = ln;
+  up.reverse = false, down.reverse = true;
 
   // forward
   if constexpr (MMA) {
-    const ConvJob c1{reinterpret_cast<const bf16*>(bank), idx_t, wq + o.conv1, part, ga.in3, s.chunk1, s.splits1};
-    const ConvJob sc{reinterpret_cast<const bf16*>(bank), idx_t, wq + o.conv_sc, part_sc, ga.in1, ci, 1};
-    if ((err = launch_conv_mma<0, TagConv1ScFwd>(g, c1, &sc, st))) return err;
+    const ConvJob c1{reinterpret_cast<const bf16*>(bank), idx_t, wq + o.conv1, part, ga.in3, s.chunk1, s.splits1,
+                     ln.bank, ln.idx, ln.wq, ln.scratch};
+    const ConvJob sc{reinterpret_cast<const bf16*>(bank), idx_t, wq + o.conv_sc, part_sc, ga.in1, ci, 1,
+                     ln.bank, ln.idx, ln.wq, ln.scratch};
+    if ((err = launch_conv_mma<0, TagConv1ScFwd>(g, c1, &sc, st, ln.n, true))) return err;
   } else {
     launch(conv_gemm_kernel<XT, PT, CD, false>, tiles1, THREADS, 0, st,
         bank, idx_t, p + o.conv1, part, ga.in3, co, ci * co, co, 1, s.chunk1);
@@ -1346,11 +1479,12 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
     LAUNCH_CHECK();
   }
   const BnFwdJob<PT> f1{part, s.splits1, p + o.bn1_s, p + o.bn1_b, xhat1, inv1};
-  launch(bn_fwd_kernel<PT, CD, 1>, bn_grid, THREADS, 0, st, f1, f1, w_t, B, hw, co, z1, nullptr, nullptr);
+  launch(bn_fwd_kernel<PT, CD, 1>, bn_grid, THREADS, 0, st, f1, f1, w_t, B, hw, co, z1, nullptr, nullptr, up);
   LAUNCH_CHECK();
   if constexpr (MMA) {
-    const ConvJob c2{reinterpret_cast<const bf16*>(z1), nullptr, wq + o.conv2, part, ga.mid3, s.chunk2, s.splits2};
-    if ((err = launch_conv_mma<0, TagConv2Fwd>(g, c2, nullptr, st))) return err;
+    const ConvJob c2{reinterpret_cast<const bf16*>(z1), nullptr, wq + o.conv2, part, ga.mid3, s.chunk2, s.splits2,
+                     ln.scratch, 0, ln.wq, ln.scratch};
+    if ((err = launch_conv_mma<0, TagConv2Fwd>(g, c2, nullptr, st, ln.n, true))) return err;
   } else {
     launch(conv_gemm_kernel<AT, PT, CD, false>, tiles2, THREADS, 0, st,
         z1, nullptr, p + o.conv2, part, ga.mid3, co, co * co, co, 1, s.chunk2);
@@ -1358,18 +1492,19 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
   }
   const BnFwdJob<PT> f2{part, s.splits2, p + o.bn2_s, p + o.bn2_b, xhat2, inv2};
   const BnFwdJob<PT> fs{part_sc, 1, p + o.bnsc_s, p + o.bnsc_b, xhats, invs};
-  launch(bn_fwd_kernel<PT, CD, 2>, bn_grid, THREADS, 0, st, f2, fs, w_t, B, hw, co, nullptr, pre, logits);
+  launch(bn_fwd_kernel<PT, CD, 2>, bn_grid, THREADS, 0, st, f2, fs, w_t, B, hw, co, nullptr, pre, logits, up);
   LAUNCH_CHECK();
 
   // backward
   const BnBwdJob<PT, AT> b2{xhat2, inv2, p + o.bn2_s, p + o.bn2_b, dy2, grads + o.bn2_s, grads + o.bn2_b};
   const BnBwdJob<PT, AT> bs{xhats, invs, p + o.bnsc_s, p + o.bnsc_b, dys, grads + o.bnsc_s, grads + o.bnsc_b};
   launch(bn_bwd_kernel<PT, CD, 0>, bn_grid, THREADS, 0, st, nullptr, 0, pre, CeArgs{logits, bank_y, idx_t, ce}, b2, bs, w_t, B, hw,
-                                                         co);
+                                                         co, down);
   LAUNCH_CHECK();
   if constexpr (MMA) {
-    const ConvJob dx{reinterpret_cast<const bf16*>(dy2), nullptr, wq + o.conv2, part, ga.mid3t, s.chunk2, s.splits2};
-    if ((err = launch_conv_mma<1, TagConv2Dx>(g, dx, nullptr, st))) return err;
+    const ConvJob dx{reinterpret_cast<const bf16*>(dy2), nullptr, wq + o.conv2, part, ga.mid3t, s.chunk2, s.splits2,
+                     ln.scratch, 0, ln.wq, ln.scratch};
+    if ((err = launch_conv_mma<1, TagConv2Dx>(g, dx, nullptr, st, ln.n, false))) return err;
   } else {
     launch(conv_wgrad_kernel<AT, AT>, wg2, THREADS, 0, st, z1, nullptr, dy2, grads + o.conv2, ga.mid3, co);
     LAUNCH_CHECK();
@@ -1378,14 +1513,16 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
     LAUNCH_CHECK();
   }
   const BnBwdJob<PT, AT> b1{xhat1, inv1, p + o.bn1_s, p + o.bn1_b, dy1, grads + o.bn1_s, grads + o.bn1_b};
-  launch(bn_bwd_kernel<PT, CD, 1>, bn_grid, THREADS, 0, st, part, s.splits2, nullptr, CeArgs{}, b1, b1, w_t, B, hw, co);
+  launch(bn_bwd_kernel<PT, CD, 1>, bn_grid, THREADS, 0, st, part, s.splits2, nullptr, CeArgs{}, b1, b1, w_t, B, hw, co, down);
   LAUNCH_CHECK();
   if constexpr (MMA) {
     const bf16* xb = reinterpret_cast<const bf16*>(bank);
     const WgradJob jobs[3] = {
-        wgrad_job(g, reinterpret_cast<const bf16*>(z1), nullptr, reinterpret_cast<const bf16*>(dy2), grads + o.conv2, ga.mid3),
-        wgrad_job(g, xb, idx_t, reinterpret_cast<const bf16*>(dy1), grads + o.conv1, ga.in3),
-        wgrad_job(g, xb, idx_t, reinterpret_cast<const bf16*>(dys), grads + o.conv_sc, ga.in1)};
+        wgrad_job(g, reinterpret_cast<const bf16*>(z1), nullptr, reinterpret_cast<const bf16*>(dy2), grads + o.conv2, ga.mid3,
+                  ln.scratch, 0, ln.scratch),
+        wgrad_job(g, xb, idx_t, reinterpret_cast<const bf16*>(dy1), grads + o.conv1, ga.in3, ln.bank, ln.idx, ln.scratch),
+        wgrad_job(g, xb, idx_t, reinterpret_cast<const bf16*>(dys), grads + o.conv_sc, ga.in1, ln.bank, ln.idx,
+                  ln.scratch)};
     if (adam) {  // the jobs' order: conv2, conv1, the shortcut
       WgradAdam ad = *adam;
       ad.off[0] = o.conv2, ad.off[1] = o.conv1, ad.off[2] = o.conv_sc;
@@ -1393,8 +1530,9 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
       ad.vec_len = 2 * co;
       ad.vec_blocks = 2;
       ad.grads = grads;
-      if ((err = launch_wgrad_mma<TagDwAllAdam, PT>(g, jobs, 3, &ad, st))) return err;
-    } else if ((err = launch_wgrad_mma<TagDwAll>(g, jobs, 3, nullptr, st))) {
+      ad.lp = ln.param, ad.ls = ln.scratch;
+      if ((err = launch_wgrad_mma<TagDwAllAdam, PT>(g, jobs, 3, &ad, st, ln.n))) return err;
+    } else if ((err = launch_wgrad_mma<TagDwAll>(g, jobs, 3, nullptr, st, ln.n))) {
       return err;
     }
   } else {
@@ -1409,20 +1547,31 @@ int enqueue_grads(const Geom& g, const Scratch& s, char* scratch, const PT* p, c
 constexpr int KERNELS_PER_STEP_MMA = 8;
 constexpr int KERNELS_PER_STEP_FMA = 12;
 
-// the bf16 weights the tensor-core products read: p itself, or the shadow copy made here
+// one lane, for the entry points that run a single step or product
+constexpr LaneLayout ONE_LANE = {1, 0, 0, 0, 0, 0, false};
+
+// the bf16 weights the tensor-core products read: p itself, or the shadow copy made here, one launch for every
+// lane of ln (whose wq stride is then the scratch's)
 template <typename PT>
-int bf16_weights(const PT* p, size_t np, char* scratch, const Scratch& s, cudaStream_t st, const bf16** wq) {
+int bf16_weights(const PT* p, size_t np, char* scratch, const Scratch& s, const LaneLayout& ln, cudaStream_t st,
+                 const bf16** wq) {
   if constexpr (sizeof(PT) == sizeof(bf16)) {
     *wq = reinterpret_cast<const bf16*>(p);
   } else {
     bf16* shadow = reinterpret_cast<bf16*>(scratch + s.shadow);
-    launch(round_params_kernel, static_cast<int>((np / 8 + THREADS - 1) / THREADS), THREADS, 0, st, p, shadow, np);
+    launch(round_params_kernel, dim3(static_cast<int>((np / 8 + THREADS - 1) / THREADS), ln.n), THREADS, 0, st, p,
+           shadow, np, ln);
     LAUNCH_CHECK();
     *wq = shadow;
   }
   return 0;
 }
 
+// The scan.  The tensor-core route walks the T steps once, each of a step's
+// 8 kernels covering every lane in one grid; each lane keeps its own slice
+// of the scratch (s.total bytes apart), its own tiling, split-K chunks and
+// reduction order, so a lane's bits are those of a call with that lane
+// alone.  The FMA route runs the lanes one after another on one slice.
 template <typename PT, typename XT>
 int enqueue_scan(const Geom& g, PT* p, const XT* bank, const int* bank_y, const int* idx, const float* w,
                  char* scratch, int L, int T, int span, float lr, cudaStream_t st) {
@@ -1441,15 +1590,17 @@ int enqueue_scan(const Geom& g, PT* p, const XT* bank, const int* bank_y, const 
     const int err = configure_mma();
     if (err) return err;
   }
-  for (int l = 0; l < L; ++l) {
-    PT* pl = p + static_cast<size_t>(l) * np;
-    // mu and nu are adjacent only up to padding: clear each
-    cudaError_t e = cudaMemsetAsync(mu, 0, np * sizeof(bf16), st);
-    if (e == cudaSuccess) e = cudaMemsetAsync(nu, 0, np * sizeof(bf16), st);
+  const int n = MMA ? L : 1;  // the lanes a pass steps together
+  for (int l0 = 0; l0 < L; l0 += n) {
+    const LaneLayout ln = {n, s.total, np * sizeof(PT), SHADOW ? s.total : np * sizeof(PT), lane_bank * sizeof(XT),
+                           static_cast<size_t>(T) * g.batch * sizeof(int), false};
+    PT* pl = p + static_cast<size_t>(l0) * np;
+    // every lane's moments: mu and nu lie side by side (up to padding) in each lane's slice
+    const cudaError_t e = cudaMemset2DAsync(mu, s.total, 0, s.nu - s.mu + np * sizeof(bf16), n, st);
     if (e != cudaSuccess) return static_cast<int>(e);
     const bf16* wq = nullptr;
     if (MMA) {
-      const int err = bf16_weights<PT>(pl, np, scratch, s, st, &wq);
+      const int err = bf16_weights<PT>(pl, np, scratch, s, ln, st, &wq);
       if (err) return err;
     }
     for (int t = 0; t < T; ++t) {
@@ -1457,9 +1608,10 @@ int enqueue_scan(const Geom& g, PT* p, const XT* bank, const int* bank_y, const 
       const AdamCoef coef{-lr, 1.0f - expf(tf * log_b1), 1.0f - expf(tf * log_b2)};
       WgradAdam ad = {};
       ad.p = pl, ad.mu = mu, ad.nu = nu, ad.shadow = shadow, ad.k = coef;
-      const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, pl, wq, bank + l * lane_bank, bank_y,
-                                                 idx + (static_cast<size_t>(l) * T + t) * g.batch,
-                                                 w + static_cast<size_t>(t) * g.batch, grads, MMA ? &ad : nullptr, st);
+      const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, pl, wq, bank + l0 * lane_bank, bank_y,
+                                                 idx + (static_cast<size_t>(l0) * T + t) * g.batch,
+                                                 w + static_cast<size_t>(t) * g.batch, grads, MMA ? &ad : nullptr, ln,
+                                                 st);
       if (err) return err;
       if (!MMA) {  // the tensor-core route updated in its weight-gradient launch
         launch(adam_kernel<PT>, adam_blocks, THREADS, 0, st, pl, mu, nu, grads, shadow, np, coef);
@@ -1478,6 +1630,11 @@ int scan_entry(void* p, const void* bank, int bank_is_bf16, const int* bank_y, c
   if (!make_geom(h_in, c_in, c_out, stride, batch, bank_is_bf16 != 0, &g) || span <= 0 || span >= 32768 || L < 0 ||
       T < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bank_is_bf16) {  // the lanes share each grid: the conv products' z, lanes times their slices, has to fit
+    const Scratch s = make_scratch(g, true);
+    const int slices = s.splits1 + 1 > s.splits2 ? s.splits1 + 1 : s.splits2;
+    if (L > 65535 / slices) return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bank_is_bf16)
     return enqueue_scan<PT, bf16>(g, static_cast<PT*>(p), static_cast<const bf16*>(bank), bank_y, idx, w,
@@ -1493,10 +1650,11 @@ int grads_once(const Geom& g, const PT* p, const XT* bank, const int* bank_y, co
   const bf16* wq = nullptr;
   if (MMA) {
     int err = configure_mma();
-    if (!err) err = bf16_weights<PT>(p, param_offsets(g).total, scratch, s, st, &wq);
+    if (!err) err = bf16_weights<PT>(p, param_offsets(g).total, scratch, s, ONE_LANE, st, &wq);
     if (err) return err;
   }
-  const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, p, wq, bank, bank_y, idx_t, w_t, grads, nullptr, st);
+  const int err = enqueue_grads<PT, XT, MMA>(g, s, scratch, p, wq, bank, bank_y, idx_t, w_t, grads, nullptr, ONE_LANE,
+                                             st);
   if (err) return err;
   launch(loss_kernel, 1, 32, 0, st, reinterpret_cast<const float*>(scratch + s.ce), w_t, g.batch, loss);
   LAUNCH_CHECK();
@@ -1571,9 +1729,10 @@ int product_once(const Geom& g, int which, const XT* W, const XT* X, const XT* D
 
 }  // namespace
 
-// Bytes of scratch the entry points below need for this geometry and route
-// (mma != 0: the tensor-core products, which a bf16 bank takes); 0 if the
-// kernels do not take the geometry.
+// Bytes of scratch a lane needs in the entry points below for this geometry
+// and route (mma != 0: the tensor-core products, which a bf16 bank takes); 0
+// if the kernels do not take the geometry.  The scan takes L times as much on
+// the tensor-core route, the others once.
 extern "C" size_t fused_inner_scan_scratch_bytes(int h_in, int c_in, int c_out, int stride, int batch, int mma) {
   Geom g;
   if (!make_geom(h_in, c_in, c_out, stride, batch, mma != 0, &g)) return 0;
@@ -1588,8 +1747,10 @@ extern "C" int fused_inner_scan_kernels_per_step(int bank_is_bf16) {
 // The scan.  p [L, n_params] in the carry dtype, updated in place (PKEYS
 // order: conv1 [9ci, co], bn1 scale, bias [co], conv2 [9co, co], bn2, conv_sc
 // [ci, co], bn_sc); bank [L, span, h_in, h_in, c_in] bf16 or f32; bank_y [span]
-// int32; idx [L, T, batch] int32; w [T, batch] f32; scratch of
-// fused_inner_scan_scratch_bytes() bytes.  All on the device of `stream`.
+// int32; idx [L, T, batch] int32; w [T, batch] f32; scratch of L (a bf16
+// bank) or 1 (an f32 bank) times fused_inner_scan_scratch_bytes() bytes.  All
+// on the device of `stream`.  L is at most 65535 over the conv products'
+// slices a lane (about 7,000 lanes at the eval's geometry) for a bf16 bank.
 extern "C" int fused_inner_scan_bf16(void* p, const void* bank, int bank_is_bf16, const int* bank_y, const int* idx,
                                      const float* w, void* scratch, int L, int T, int span, int h_in, int c_in,
                                      int c_out, int stride, int batch, float lr, void* stream) {

@@ -21,9 +21,11 @@ channels-last ``[span, H, H, Ci]``.  :func:`block_to_flat` /
 
 * On CUDA tensors :func:`fused_inner_scan_lanes`, :func:`fused_inner_scan`
   and :func:`fused_step_grads` launch the kernels or raise; they never fall
-  back.  ``LAUNCHES`` counts one per call of the scan entry point (which
-  enqueues ``kernels_per_step(bank.dtype) * T * L`` device kernels from a C
-  loop).  :func:`fused_product` runs one of the seven products alone, by
+  back.  ``LAUNCHES`` counts one per call of the scan entry point, which
+  enqueues ``kernels_per_step(bank.dtype)`` device kernels a step program
+  from a C loop: with a bf16 bank a step program's grids cover every lane
+  of the call (``T`` programs), with an f32 bank it is one lane's (``L * T``
+  programs).  :func:`fused_product` runs one of the seven products alone, by
   the route the scan takes for the operands' dtype, for checks and times.
 * On CPU tensors they compute the plain version below
   (:func:`step_grads_reference`, :func:`adam_update_reference`,
@@ -458,10 +460,11 @@ def _unpack(flat: torch.Tensor, geom: BlockGeom, lead: tuple) -> dict:
     return {k: part.reshape(lead + shapes[k]) for k, part in zip(PKEYS, parts)}
 
 
-def _scratch(lib, geom: BlockGeom, dev, tensor_cores: bool) -> torch.Tensor:
-    """The one scratch buffer of a call; the library sizes it for the
-    products' route, and answers 0 for a geometry its kernels do not take."""
-    nbytes = int(lib.fused_inner_scan_scratch_bytes(*geom, int(tensor_cores)))
+def _scratch(lib, geom: BlockGeom, dev, tensor_cores: bool, lanes: int = 1) -> torch.Tensor:
+    """The one scratch buffer of a call, ``lanes`` slices of what the
+    library asks for a lane on the products' route (it answers 0 for a
+    geometry its kernels do not take)."""
+    nbytes = int(lib.fused_inner_scan_scratch_bytes(*geom, int(tensor_cores))) * lanes
     if nbytes == 0:
         raise ValueError(f"the fused inner-scan kernels do not take {geom}: stride 1 or 2 dividing h_in <= 255, "
                          "c_in and c_out multiples of 16 (for a bfloat16 bank, whose products run on the tensor "
@@ -480,7 +483,10 @@ def _launch_scan(p0, fmap_banks, bank_y, idx, w, geom: BlockGeom, lr: float) -> 
         return {k: v.clone() for k, v in p0.items()}
     lib = _lib()
     state = _pack(p0, (lanes,))  # updated in place by the kernels
-    scratch = _scratch(lib, geom, dev, fmap_banks.dtype == torch.bfloat16)
+    tensor_cores = fmap_banks.dtype == torch.bfloat16
+    # a step's grids cover every lane on the tensor-core route; the FMA route runs the lanes in turn on one slice
+    scratch = _scratch(lib, geom, dev, tensor_cores, lanes if tensor_cores else 1)
+    metrics.count("scan.grid_steps", n_steps if tensor_cores else lanes * n_steps)
     y32 = bank_y.to(torch.int32).contiguous()
     idx32 = idx.to(torch.int32).contiguous()
     w32 = w.to(torch.float32).contiguous()
@@ -489,7 +495,7 @@ def _launch_scan(p0, fmap_banks, bank_y, idx, w, geom: BlockGeom, lr: float) -> 
     LAUNCHES += 1
     t0 = time.perf_counter()
     with torch.cuda.device(dev):  # the library sets up its kernels on the current device
-        err = fn(state.data_ptr(), fmap_banks.data_ptr(), int(fmap_banks.dtype == torch.bfloat16), y32.data_ptr(),
+        err = fn(state.data_ptr(), fmap_banks.data_ptr(), int(tensor_cores), y32.data_ptr(),
                  idx32.data_ptr(), w32.data_ptr(), scratch.data_ptr(), lanes, n_steps, span, *geom, float(lr),
                  stream)
     LAST_ENQUEUE_SECONDS = time.perf_counter() - t0
@@ -509,9 +515,13 @@ def fused_inner_scan_lanes(p0, fmap_banks, bank_y, idx, w, *, geom: BlockGeom, l
     the padding of ``minibatch_schedule`` depends only on the position).
     Returns the adapted parameters (``[L, ...]``, same dtype); ``p0`` is
     not modified.  Adds the call's ``L * T`` steps to the lane batch's
-    ``adapt.lane_steps`` counter (``utils/metrics.count``)."""
+    ``adapt.lane_steps`` counter (``utils/metrics.count``), and the step
+    programs it runs one after another to ``scan.grid_steps``: ``T`` where
+    a step's grids cover every lane (a bf16 bank on CUDA), ``L * T`` where
+    the lanes run in turn (an f32 bank, and the plain version on the CPU)."""
     metrics.count("adapt.lane_steps", idx.shape[0] * idx.shape[1])
     if fmap_banks.device.type == "cpu":
+        metrics.count("scan.grid_steps", idx.shape[0] * idx.shape[1])
         outs = [fused_inner_scan_reference({k: v[l] for k, v in p0.items()}, fmap_banks[l], bank_y, idx[l], w,
                                            geom=geom, lr=lr) for l in range(idx.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in PKEYS}

@@ -8,16 +8,19 @@
   nowhere;
 * ``adapt.lane_steps`` counts each lane's step once: the eager loops
   (``inner_fit``, ``inner_fit_pair``, ``inner_fit_epochwise``) and the fused
-  scan's plain CPU route;
+  scan's plain CPU route; ``scan.grid_steps`` counts the scan's step
+  programs run one after another, each lane's step on the CPU route, and
+  its reader ``phase.scan_grid_steps`` divides the window's by its episodes;
 * the driver's ``evaluate``: its ``eval:batch`` spans tile the loop, each
   holds its waits, stack, run and report, ``batch_seconds`` are the
   ``eval:run`` spans, and ``episodes_per_sec`` is the rate after the first
   batch;
 * the benchmark's cells through ``portbench.run.run_cell`` with
   ``--trace 1`` at a small size: the readers of the recorder report, and
-  the counter reads the traffic's steps an episode.
+  the counters read the traffic's steps an episode.
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -157,7 +160,56 @@ def test_the_scan_counts_lane_steps_on_its_cpu_route():
     idx, w = til.lane_schedule([torch.Generator().manual_seed(i) for i in range(lanes)], cfg)
     with metrics.eval_batch(0, lanes) as b:
         tfis.fused_inner_scan_lanes(p0, banks, y, idx, w, geom=geom, lr=0.01)
-    assert b.counters == {"adapt.lane_steps": lanes * cfg.n_steps}
+    assert b.counters == {"adapt.lane_steps": lanes * cfg.n_steps, "scan.grid_steps": lanes * cfg.n_steps}
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_the_scan_counts_grid_steps_on_its_cpu_route(lanes):
+    """The plain version runs the lanes in turn, so each lane's step is a
+    step program of its own: L x T in the batch's record, added up over
+    two calls, and nothing outside a batch."""
+    geom = tfis.BlockGeom(h_in=4, c_in=16, c_out=32, stride=2, batch=5)
+    gen = torch.Generator().manual_seed(1)
+    cfg = til.InnerLoopCfg(1, 5, 10)
+    p0 = {k: (torch.randn((lanes,) + v, generator=gen) * 0.1).to(torch.bfloat16)
+          for k, v in tfis.param_shapes(geom).items()}
+    banks = torch.randn(lanes, 10, 4, 4, 16, generator=gen).to(torch.bfloat16)
+    y = torch.randint(0, 3, (10,), generator=gen)
+    idx, w = til.lane_schedule([torch.Generator().manual_seed(i) for i in range(lanes)], cfg)
+    tfis.fused_inner_scan_lanes(p0, banks, y, idx, w, geom=geom, lr=0.01)  # outside a batch: kept nowhere
+    with metrics.eval_batch(0, lanes) as b:
+        tfis.fused_inner_scan_lanes(p0, banks, y, idx, w, geom=geom, lr=0.01)
+        tfis.fused_inner_scan_lanes(p0, banks, y, idx[:, :1], w[:1], geom=geom, lr=0.01)
+    assert b.counters["scan.grid_steps"] == lanes * (cfg.n_steps + 1)
+    assert metrics.eval_batches() == [b]
+
+
+def _reader(name):
+    spec = importlib.util.spec_from_file_location(f"reader_{name}", os.path.join(REPO, "portbench", "metrics",
+                                                                                 name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+def test_the_grid_steps_reader_on_batch_records():
+    """``phase.scan_grid_steps``: the counter summed over batches 1 to
+    ``window_batches`` (batch 0, the warm-up, and the batches after the
+    window left out) over those batches' episodes; None with no counter in
+    the window or fewer batches than the window holds."""
+    read = _reader("phase.scan_grid_steps")
+    for k, (episodes, steps) in enumerate([(20, 500), (20, 25), (20, 25), (7, 25), (20, 99)]):
+        with metrics.eval_batch(k, episodes):
+            metrics.count("scan.grid_steps", steps)
+            metrics.count("adapt.lane_steps", 500 * episodes)
+    assert read({"window_batches": 3}) == 75 / 47
+    assert read({"window_batches": 2}) == 50 / 40
+    assert read({"window_batches": 5}) is None  # the records hold batches 1 to 4 only
+    with metrics.eval_batch(0, 20):
+        pass
+    with metrics.eval_batch(1, 20):
+        metrics.count("adapt.lane_steps", 10_000)
+    assert read({"window_batches": 1}) is None
 
 
 @pytest.fixture(scope="module")
@@ -210,10 +262,10 @@ print(json.dumps({"small": small, **res}))
 
 @pytest.mark.parametrize("cell", ["all.5shot.e20", "dampnet.5shot.e20"])
 def test_the_benchmark_reads_the_recorder(cell):
-    """The recorder's four metrics are read in a traced run of the cell,
-    and the counter holds the traffic's steps an episode: the scan's epochs
-    over its bank, and in ``all`` the linear member's 20 epochs over the
-    clean support."""
+    """The recorder's five metrics are read in a traced run of the cell,
+    and the counters hold the traffic's steps an episode: the scan's epochs
+    over its bank, and in ``adapt.lane_steps`` of ``all`` the linear
+    member's 20 epochs over the clean support besides."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", _CELL_RUN, cell], cwd=REPO, env=env, capture_output=True, text=True,
@@ -222,10 +274,12 @@ def test_the_benchmark_reads_the_recorder(cell):
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"], res["checks"]
     m, small = {k: v["value"] for k, v in res["metrics"].items()}, res["small"]
-    assert {"input.wait_share", "input.stage_share", "phase.adapt_span_ms", "phase.adapt_lane_steps"} <= set(m)
+    assert {"input.wait_share", "input.stage_share", "phase.adapt_span_ms", "phase.adapt_lane_steps",
+            "phase.scan_grid_steps"} <= set(m)
     assert 0 < m["input.wait_share"] + m["input.stage_share"] < 1 and m["phase.adapt_span_ms"] > 0
     shots = small["n_shot"] * 5
     steps = small["fine_tune_epoch"] * (small["gen_examples"] + 3) * shots // 5
+    assert m["phase.scan_grid_steps"] == steps  # one lane a batch: the scan's steps, on the CPU lane by lane
     if cell.startswith("all"):
         steps += 20 * shots // 5
     assert m["phase.adapt_lane_steps"] == steps
