@@ -57,7 +57,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from portbench.reference import episode as ref
-from portbench.reference.nets import Precision, ResNet10
+from portbench.reference.nets import Precision
 from portbench.reference.sampler import episode_generator, episode_items
 
 #: the readings of every run besides the members' own (``<name>.<member>``)
@@ -222,7 +222,7 @@ def reference_step(models: dict, ep, d: dict, member: str, bank: torch.Tensor, c
     """The reference's first step of ``member`` on ``bank`` from the
     episode's start: ``(start, after)`` in the reference's names."""
     model = dict(ref.adapting_members(cell))[member]
-    net = ResNet10(models[model], Precision(precision))
+    net = ref.backbone(models[model], cell, Precision(precision))
     block0, head0 = ref.start_state(net, d, member, bank.device)
     steps = ref.member_steps(d, member, cell["batch"])[:1]
     block, head = ref.adapt(net, bank, ref.labels_of(ep, member), steps, block0, head0, lr=cell["lr"],

@@ -33,18 +33,32 @@ def make_dataset(seed: int, data: dict):
     return img, labels
 
 
-def _resnet_layout(widths=(64, 128, 256, 512)) -> list:
-    """``(key, shape, init)`` of a ResNet10 ``feature.trunk``."""
+def backbone_of(config: dict) -> tuple:
+    """``(stage_sizes, widths)`` of the configuration's backbone, a ResNet
+    of ``SimpleBlock`` units (the reference repo's ResNet10, ResNet18 and
+    ResNet34), as the configuration states them."""
+    missing = [k for k in ("stage_sizes", "widths") if k not in config]
+    if missing:
+        raise ValueError(f"configuration {config.get('name')!r} states no {' and no '.join(missing)}")
+    return tuple(config["stage_sizes"]), tuple(config["widths"])
+
+
+def _resnet_layout(stage_sizes, widths) -> list:
+    """``(key, shape, init)`` of a ResNet ``feature.trunk``: the stem at
+    ``.0``/``.1``, then ``sum(stage_sizes)`` blocks at ``.4`` on, in the
+    reference's order; a block has a 1x1 ``shortcut`` (with
+    ``BNshortcut``) where its input and output widths differ."""
     out = [("feature.trunk.0.weight", (widths[0], 3, 7, 7), "conv")]
     out += _bn_layout("feature.trunk.1", widths[0], running=True)
-    cin = widths[0]
-    for i, c in enumerate(widths):
-        pre = f"feature.trunk.{4 + i}"
-        out += [(f"{pre}.C1.weight", (c, cin, 3, 3), "conv")] + _bn_layout(f"{pre}.BN1", c, True)
-        out += [(f"{pre}.C2.weight", (c, c, 3, 3), "conv")] + _bn_layout(f"{pre}.BN2", c, True)
-        if cin != c:
-            out += [(f"{pre}.shortcut.weight", (c, cin, 1, 1), "conv")] + _bn_layout(f"{pre}.BNshortcut", c, True)
-        cin = c
+    cin, k = widths[0], 4
+    for n, c in zip(stage_sizes, widths, strict=True):
+        for _ in range(n):
+            pre = f"feature.trunk.{k}"
+            out += [(f"{pre}.C1.weight", (c, cin, 3, 3), "conv")] + _bn_layout(f"{pre}.BN1", c, True)
+            out += [(f"{pre}.C2.weight", (c, c, 3, 3), "conv")] + _bn_layout(f"{pre}.BN2", c, True)
+            if cin != c:
+                out += [(f"{pre}.shortcut.weight", (c, cin, 1, 1), "conv")] + _bn_layout(f"{pre}.BNshortcut", c, True)
+            cin, k = c, k + 1
     return out
 
 
@@ -91,13 +105,20 @@ def _dampnet_layout(head: dict) -> list:
     return out
 
 
-def layout(parts, head: dict, n_way: int) -> list:
-    """The state dict of a model made of ``parts`` (``resnet10``,
-    ``gnnnet``, ``dampnet``)."""
+#: the backbone's part names: ``resnet`` (any depth), and ``resnet10``, the
+#: name the ResNet10 configurations give it
+BACKBONE_PARTS = ("resnet", "resnet10")
+
+
+def layout(parts, head: dict, n_way: int, backbone: tuple) -> list:
+    """The state dict of a model made of ``parts`` (a backbone part,
+    ``gnnnet``, ``dampnet``); ``backbone`` is ``(stage_sizes, widths)``."""
     out = []
     for part in parts:
-        out += {"resnet10": lambda: _resnet_layout(), "gnnnet": lambda: _gnnnet_layout(head, n_way),
-                "dampnet": lambda: _dampnet_layout(head)}[part]()
+        if part in BACKBONE_PARTS:
+            out += _resnet_layout(*backbone)
+        else:
+            out += {"gnnnet": lambda: _gnnnet_layout(head, n_way), "dampnet": lambda: _dampnet_layout(head)}[part]()
     return out
 
 
@@ -131,8 +152,9 @@ def make_models(seed: int, config: dict, n_way: int, device) -> dict:
     ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     out = {}
+    backbone = backbone_of(config)
     for name, parts in config["models"].items():
-        out[name] = make_state_dict(layout(parts, config["head"], n_way), gen, device)
+        out[name] = make_state_dict(layout(parts, config["head"], n_way, backbone), gen, device)
     if "dampnet" in config["models"]:
         d = config["head"]["feat"]
         out["proto_mean"] = torch.rand(d, generator=gen, device=device)

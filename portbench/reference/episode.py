@@ -5,9 +5,10 @@ summed) or as ``finetune_50.py`` runs DampNet's live composition
 
 * :func:`draws`: the episode's random numbers, in the order the port takes
   them from the episode's generator: the linear head's init (``rand(n_way,
-  512)``, ``rand(n_way)``), the linear schedule (a ``randperm`` of the
-  support an epoch), each augmented replica's nine uniforms an image, then
-  the GNN (or DampNet) schedule (a ``randperm`` of the bank an epoch);
+  feat)``, ``rand(n_way)``; ``feat`` the last stage's width), the linear
+  schedule (a ``randperm`` of the support an epoch), each augmented
+  replica's nine uniforms an image, then the GNN (or DampNet) schedule (a
+  ``randperm`` of the bank an epoch);
 * :func:`support_bank`: the frozen trunk's features of the support bank
   (the clean support three times, then ``gen_examples`` augmented
   replicas), batch statistics per replica; the linear member takes the
@@ -15,7 +16,7 @@ summed) or as ``finetune_50.py`` runs DampNet's live composition
 * :func:`adapt`: ``epochs`` of batch-5 torch-Adam steps on the final block
   (the linear member's head beside it, with weight decay), the parameters
   carried in the run's precision; the GNN
-  member's inner loss is the cross-entropy of the raw 512-d features as
+  member's inner loss is the cross-entropy of the raw features as
   logits (reference finetune.py:286-291);
 * :func:`scores_from_state`: the clean episode embedded by the adapted
   backbone (batch statistics over the episode) and scored by each member's
@@ -32,9 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from portbench.reference.images import augmented_view, clean_view
-from portbench.reference.nets import DampNetRecovery, GnnNetHead, Precision, ResNet10, linear
-
-FINAL = 7  # the final block's index in feature.trunk
+from portbench.reference.nets import DampNetRecovery, GnnNetHead, Precision, ResNet, linear
 
 
 def adapting_members(cell: dict) -> list:
@@ -46,13 +45,20 @@ def adapting_members(cell: dict) -> list:
     raise ValueError(f"the reference evaluates --method all and dampnet_full_class, not {cell['method']!r}")
 
 
+def backbone(sd: dict, cell: dict, prec: Precision) -> ResNet:
+    """The backbone of state dict ``sd`` in the cell's shape
+    (``stage_sizes``, ``widths``)."""
+    return ResNet(sd, prec, cell["stage_sizes"], cell["widths"])
+
+
 def draws(gen: torch.Generator, cell: dict) -> dict:
     """Every random number of the episode, drawn in the port's order."""
     n_way, support = cell["n_way"], cell["n_way"] * cell["n_shot"]
     out = {}
     if cell["method"] == "all":
-        bound = 1.0 / math.sqrt(512)
-        out["head0"] = {"w": (torch.rand((n_way, 512), generator=gen) * 2.0 - 1.0) * bound,
+        feat = cell["widths"][-1]
+        bound = 1.0 / math.sqrt(feat)
+        out["head0"] = {"w": (torch.rand((n_way, feat), generator=gen) * 2.0 - 1.0) * bound,
                         "b": (torch.rand((n_way,), generator=gen) * 2.0 - 1.0) * bound}
         out["linear_perms"] = [torch.randperm(support, generator=gen) for _ in range(cell["linear_epochs"])]
     out["augment"] = [torch.rand((support, 9), generator=gen) for _ in range(cell["gen_examples"])]
@@ -83,7 +89,7 @@ class Episode:
         self.y_bank = self.y_support.repeat(cell["gen_examples"] + 3)
 
 
-def support_bank(net: ResNet10, ep: Episode, d: dict, member: str) -> torch.Tensor:
+def support_bank(net: ResNet, ep: Episode, d: dict, member: str) -> torch.Tensor:
     """The member's bank of trunk features: the clean support's (the linear
     member), or ``[clean x3, augmented replicas]``, each replica's batch
     statistics its own."""
@@ -97,11 +103,11 @@ def support_bank(net: ResNet10, ep: Episode, d: dict, member: str) -> torch.Tens
     return torch.cat(groups)
 
 
-def start_state(net: ResNet10, d: dict, member: str, device) -> tuple:
+def start_state(net: ResNet, d: dict, member: str, device) -> tuple:
     """The member's starting ``(block, head)``: the final block as loaded
     and, for the linear member, the drawn head."""
     head = {k: v.to(device) for k, v in d["head0"].items()} if member == "linear" else None
-    return net.block_params(FINAL), head
+    return net.block_params(net.final_index), head
 
 
 def labels_of(ep: Episode, member: str) -> torch.Tensor:
@@ -112,7 +118,7 @@ def member_steps(d: dict, member: str, batch: int) -> list:
     return steps_of(d["linear_perms"] if member == "linear" else d["bank_perms"], batch)
 
 
-def adapt(net: ResNet10, bank, labels, steps, block0: dict, head0=None, *, lr: float, head_wd: float = 0.0,
+def adapt(net: ResNet, bank, labels, steps, block0: dict, head0=None, *, lr: float, head_wd: float = 0.0,
           first_grads: dict | None = None) -> tuple:
     """torch-Adam on ``block0`` (and ``head0``) over ``steps``; returns the
     adapted ``(block, head)``.  The parameters are carried in the net's
@@ -155,7 +161,7 @@ def member_scores(models: dict, ep: Episode, member: str, block: dict, head, pre
     cell = ep.cell
     n_way, n_shot, n_query = cell["n_way"], cell["n_shot"], cell["n_query"]
     model = {"linear": "baseline", "gnn": "gnn", "dampnet": "dampnet"}[member]
-    net = ResNet10(models[model], prec)
+    net = backbone(models[model], cell, prec)
     block = {k: v.float() for k, v in block.items()}
     with torch.no_grad():
         feats = net.final(block, net.trunk(ep.views)).reshape(n_way, n_shot + n_query, -1)
@@ -186,7 +192,7 @@ def run_episode(models: dict, images_u8: torch.Tensor, gen: torch.Generator, cel
     d = draws(gen, cell)
     state, start, grads, banks = {}, {}, {}, {}
     for member, model in adapting_members(cell):
-        net = ResNet10(models[model], prec)
+        net = backbone(models[model], cell, prec)
         banks[member] = support_bank(net, ep, d, member)
         start[member] = start_state(net, d, member, images_u8.device)
         grads[member] = {}

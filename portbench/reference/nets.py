@@ -1,6 +1,6 @@
 """The networks of the eval, read straight from the reference repo's state
 dict layout (``feature.trunk.*``, ``fc.*``, ``gnn.*``, DampNet's ``W_R`` ...):
-the ResNet10 trunk and final block with batch-statistics BN, the GnnNet
+the ResNet trunk and final block with batch-statistics BN, the GnnNet
 head (reference ``methods/gnn.py``: ``Wcompute``, ``Gconv``, ``GNN_nl``)
 and DampNet's recovery network (``methods/dampnet_full_class.py``).
 
@@ -56,14 +56,28 @@ def bn_last(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.T
     return (x - mean) / torch.sqrt(var + BN_EPS) * scale + bias
 
 
-class ResNet10:
-    """The backbone of a state dict: ``feature.trunk.0`` the stem conv,
-    ``.1`` its BN, then four ``SimpleBlock``s at ``.4`` to ``.7``."""
+class ResNet:
+    """The backbone of a state dict, a ResNet of ``SimpleBlock`` units
+    (the reference repo's ResNet10, ResNet18, ResNet34): ``feature.trunk.0``
+    the stem conv, ``.1`` its BN, then ``sum(stage_sizes)`` blocks from
+    ``.4`` on, stage by stage.  Block ``j`` of stage ``i`` halves the
+    resolution where ``i >= 1 and j == 0`` (reference backbone.py); a block
+    has a 1x1 shortcut where the state dict holds one."""
 
-    BLOCKS = (4, 5, 6, 7)
-
-    def __init__(self, sd: dict, prec: Precision):
+    def __init__(self, sd: dict, prec: Precision, stage_sizes, widths):
         self.sd, self.prec = sd, prec
+        shape = f"stage_sizes {tuple(stage_sizes)}, widths {tuple(widths)}"
+        self.blocks = []  # (state-dict index, stride) of each block, in order
+        for i, (n, c) in enumerate(zip(stage_sizes, widths, strict=True)):
+            for j in range(n):
+                k = 4 + len(self.blocks)
+                w = sd.get(f"feature.trunk.{k}.C2.weight")
+                if w is None or w.shape[0] != c:
+                    raise ValueError(f"the state dict's feature.trunk.{k} is not a block of width {c} ({shape})")
+                self.blocks.append((k, 2 if i >= 1 and j == 0 else 1))
+        if f"feature.trunk.{4 + len(self.blocks)}.C2.weight" in sd:
+            raise ValueError(f"the state dict holds more blocks than {shape}")
+        self.final_index = self.blocks[-1][0]
 
     def block_params(self, i: int) -> dict:
         pre = f"feature.trunk.{i}."
@@ -84,19 +98,20 @@ class ResNet10:
         return torch.relu(out + short)
 
     def trunk(self, x, groups: int = 1):
-        """Stem and every block but the last -> ``[N, 256, h, h]``; batch
-        statistics per contiguous group of ``N / groups`` images."""
+        """Stem and every block but the last -> the final block's input;
+        batch statistics per contiguous group of ``N / groups`` images."""
         sd = self.sd
         x = bn(self.conv(x, sd["feature.trunk.0.weight"], 2, 3), sd["feature.trunk.1.weight"],
                sd["feature.trunk.1.bias"], groups)
         x = F.max_pool2d(torch.relu(x), 3, 2, 1)
-        for k, i in enumerate(self.BLOCKS[:-1]):
-            x = self.block(self.block_params(i), x, 1 if k == 0 else 2, groups)
+        for i, stride in self.blocks[:-1]:
+            x = self.block(self.block_params(i), x, stride, groups)
         return x
 
     def final(self, p: dict, fmap, groups: int = 1):
-        """The final block ``p`` (adapted or not) and the global pool -> ``[N, 512]``."""
-        return self.block(p, fmap, 2, groups).mean(dim=(2, 3))
+        """The final block ``p`` (adapted or not) at its own stride and the
+        global pool -> ``[N, widths[-1]]``."""
+        return self.block(p, fmap, self.blocks[-1][1], groups).mean(dim=(2, 3))
 
 
 def linear(prec: Precision, x, w, b=None):

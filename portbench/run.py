@@ -126,9 +126,13 @@ def load_cell(name: str, root: str = ROOT) -> dict:
 
 
 def reference_cell(config: dict, traffic: dict) -> dict:
-    """What the reference needs to know of an episode."""
+    """What the reference needs to know of an episode: the configuration's
+    recipe and backbone shape, the traffic's geometry."""
+    from portbench import inputs
+
     keys = ("n_way", "n_shot", "n_query", "image_size", "gen_examples", "fine_tune_epoch", "augment")
-    return {**config["reference"], **{k: traffic[k] for k in keys}}
+    stage_sizes, widths = inputs.backbone_of(config)
+    return {**config["reference"], **{k: traffic[k] for k in keys}, "stage_sizes": stage_sizes, "widths": widths}
 
 
 def program_argv(config: dict, traffic: dict, seed: int, device: str, iter_num: int) -> list:
@@ -237,6 +241,11 @@ def prepare(name: str, seed: int, *, device: str = "cuda", mesh_devices=None, ov
     p.a = a
     p.spec = EpisodeSpec(a.test_n_way, a.n_shot, a.n_query if a.n_query > 0 else 15)
     p.bcfg = bb.MODEL_REGISTRY[a.model]()._replace(compute_dtype=a.dtype)
+    stated, port = inputs.backbone_of(p.config), (tuple(p.bcfg.stage_sizes), tuple(p.bcfg.widths))
+    if stated != port:
+        raise ValueError(f"configuration {p.config['name']!r} states stage_sizes {list(stated[0])}, widths "
+                         f"{list(stated[1])}, but its --model {a.model} is stage_sizes {list(port[0])}, widths "
+                         f"{list(port[1])}: the port would run another network than the reference")
     p.gcfg = gn.GnnNetCfg(feat_dim=p.bcfg.feat_dim, n_way=a.test_n_way, n_support=a.n_shot,
                           support_compress=2 if a.n_shot >= 50 else 1, use_pallas=a.use_pallas)
     p.dcfg = dn.method_cfg(a.method, p.bcfg.feat_dim, a.test_n_way, a.n_shot) if a.method.startswith("dampnet") else None

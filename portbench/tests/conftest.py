@@ -15,3 +15,16 @@ if ROOT not in sys.path:
 #: one epoch of inner steps, two lanes, three queries a class
 SMALL = {"image_size": 32, "data": {"classes": 10, "per_class": 12, "base_size": 36}, "gen_examples": 1,
          "fine_tune_epoch": 1, "eval_batch": 2, "n_query": 3}
+
+
+def digest(named_tensors) -> str:
+    """sha256 over ``(name, tensor)`` pairs: each name, shape, dtype and the
+    tensor's bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in named_tensors:
+        t = t.detach().cpu().contiguous()
+        h.update(f"{name}|{tuple(t.shape)}|{t.dtype}|".encode())
+        h.update(t.numpy().tobytes())
+    return h.hexdigest()

@@ -39,20 +39,23 @@ def edge_bound_ms(b: int, n: int, f: int, c: int, route: str = "function"):
 def fused_bound(h_in: int, c_in: int, c_out: int, stride: int, batch: int, n_steps: int, carry_bytes: int,
                 bank_bytes: int) -> dict:
     """Least times of an ``n_steps`` adaptation scan of one lane of the final
-    block, from its shapes: the products (forward conv1, conv2, shortcut;
-    backward conv2's weight and input gradients, conv1's and the shortcut's
-    weight gradients) over the bf16 peak, and the bytes the function must
-    move (parameters read and written once, each step's bank rows, the
-    schedule and labels) over the memory rate."""
+    block, from its shapes: the products (forward conv1, conv2, the 1x1
+    shortcut; backward conv2's weight and input gradients, conv1's and the
+    shortcut's weight gradients) over the bf16 peak, and the bytes the
+    function must move (parameters read and written once, each step's bank
+    rows, the schedule and labels) over the memory rate.  The block has the
+    shortcut conv and its BN where ``c_in != c_out`` (the reference's rule);
+    otherwise its shortcut is the identity, which costs nothing."""
     h_out = h_in // stride
     r, ci, co, b = batch * h_out * h_out, c_in, c_out, batch
-    fwd = 2.0 * r * co * (9 * ci + 9 * co + ci)
-    bwd = 2.0 * r * co * (9 * co + 9 * co + 9 * ci + ci)
-    n_params = 9 * ci * co + 9 * co * co + ci * co + 6 * co
+    sc = ci if ci != co else 0  # the shortcut's input channels, 0 for the identity
+    fwd = 2.0 * r * co * (9 * ci + 9 * co + sc)
+    bwd = 2.0 * r * co * (9 * co + 9 * co + 9 * ci + sc)
+    n_params = 9 * ci * co + 9 * co * co + sc * co + (6 if sc else 4) * co
     flops = (fwd + bwd) * n_steps
     nbytes = (2.0 * n_params * carry_bytes + float(n_steps) * b * h_in * h_in * ci * bank_bytes
               + n_steps * b * (4 + 4 + 4))
-    return {"flops": flops, "bytes": nbytes, "ms_tc": flops / PEAK_BF16_FLOPS * 1e3,
+    return {"flops": flops, "bytes": nbytes, "params": n_params, "ms_tc": flops / PEAK_BF16_FLOPS * 1e3,
             "ms_bytes": nbytes / PEAK_BYTES * 1e3}
 
 
@@ -65,25 +68,30 @@ def _conv(h_out: int, c_in: int, c_out: int, k: int) -> float:
     return 2.0 * h_out * h_out * c_out * c_in * k * k
 
 
-def resnet_flops(image_size: int, widths=(64, 128, 256, 512)) -> dict:
-    """Forward FLOPs of one image through a ResNet10 (one ``SimpleBlock`` a
-    stage): ``{"trunk", "final", "final_bwd"}``; ``final_bwd`` is the final
-    block's backward when its input is a constant (conv2's weight and input
-    gradients, conv1's and the shortcut's weight gradients)."""
+def resnet_flops(image_size: int, widths=(64, 128, 256, 512), stage_sizes=(1, 1, 1, 1)) -> dict:
+    """Forward FLOPs of one image through a ResNet of ``SimpleBlock`` units
+    (ResNet10 by default; ResNet18 and ResNet34 by their ``stage_sizes``),
+    every block counted: ``{"trunk", "final", "final_bwd"}``.  Block ``j``
+    of stage ``i`` halves the resolution where ``i >= 1 and j == 0``, and has
+    a 1x1 shortcut conv where its input and output widths differ.
+    ``final_bwd`` is the final block's backward when its input is a
+    constant (conv2's weight and input gradients, conv1's weight gradient
+    and the shortcut's, where it has one)."""
     h = image_size // 2
     trunk = _conv(h, 3, widths[0], 7)
     h = (h + 1) // 2  # max pool
-    cin, final = widths[0], 0.0
-    for i, c in enumerate(widths):
-        if i:
-            h //= 2
-        block = _conv(h, cin, c, 3) + _conv(h, c, c, 3) + (_conv(h, cin, c, 1) if cin != c else 0.0)
-        if i == len(widths) - 1:
-            final = block
-            final_bwd = 2 * _conv(h, c, c, 3) + _conv(h, cin, c, 3) + _conv(h, cin, c, 1)
-        else:
-            trunk += block
-        cin = c
+    blocks = []
+    cin = widths[0]
+    for i, (n, c) in enumerate(zip(stage_sizes, widths, strict=True)):
+        for j in range(n):
+            if i >= 1 and j == 0:
+                h //= 2
+            short = _conv(h, cin, c, 1) if cin != c else 0.0
+            blocks.append((_conv(h, cin, c, 3) + _conv(h, c, c, 3) + short,
+                           2 * _conv(h, c, c, 3) + _conv(h, cin, c, 3) + short))
+            cin = c
+    trunk += sum(fwd for fwd, _ in blocks[:-1])
+    final, final_bwd = blocks[-1]
     return {"trunk": trunk, "final": final, "final_bwd": final_bwd}
 
 
@@ -111,11 +119,13 @@ def gnn_head_flops(n_graphs: int, n_way: int, n_support: int, proj: int, nf: int
 
 def episode_flops(config: dict, traffic: dict) -> float:
     """Model FLOPs of one episode of the configuration's eval, counted from
-    its shapes, whatever the program launches to compute them."""
+    its shapes (the backbone's ``stage_sizes`` and ``widths``, ResNet10's
+    where it states none), whatever the program launches to compute them."""
     size = traffic["image_size"]
     n_way, n_shot, n_query = traffic["n_way"], traffic["n_shot"], traffic["n_query"]
     support, total = n_way * n_shot, n_way * (n_shot + n_query)
-    r = resnet_flops(size)
+    r = resnet_flops(size, tuple(config.get("widths", (64, 128, 256, 512))),
+                     tuple(config.get("stage_sizes", (1, 1, 1, 1))))
     full = r["trunk"] + r["final"]
     step = traffic["batch"] * (r["final"] + r["final_bwd"])
     bank_rows = (traffic["gen_examples"] + 3) * support
